@@ -14,7 +14,21 @@ Phases, each of which must pass:
   5. the main path, as `bench.py` drives the JAX package: flagship bf16
      WaveFormer → 8-way patch-TTA sliding window (roi 128³, sw_batch 8,
      overlap 0.5) → `Predictor.predict_case` / `predict_cases` on synthetic
-     (4, 150, 180, 145) cases; kernel launches are counted over the run.
+     (4, 150, 180, 145) cases; kernel launches are counted over the run;
+  6. the dense 3³ conv kernel (`csrc/conv3.cu`) in its three forms (DHWC,
+     DHCW, fused with the InstanceNorm prologue and statistics) against its
+     plain version at the 16 convs of the 8 res blocks of a batch-8 forward
+     and the JAX tests' shapes, fp32 and bf16, with `F.conv3d` (cuDNN) as
+     the library time;
+  7. the fused CCF-FFN tail (`csrc/ffn_tail.cu`) against its plain version
+     at the 8 tails of a batch-8 forward and one odd shape;
+  8. the conv-block path: one batch-8 128³ bf16 flagship forward with its 8
+     `UnetResBlock`s and 8 `CCF_FFN`s captured by hooks, then every block
+     again through the fused conv (`res_block_fused_module`), through the
+     plain conv kernel in both layouts (`res_block_reference`), and every
+     FFN through the fused tail (`ffn_tail_module`), each against the
+     module's own output; launches are counted over that run, and each
+     block's time on each path is printed.
 The last lines are a `{"kernels": [...]}` JSON line, the card line, and
 `{"ok": true, "device": {...}}`. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -46,10 +60,35 @@ DW_MAIN_SHAPES = [  # (B, D, H, W, C) of the 10 depthwise convs of a forward
     (8, 64, 64, 64, 192), (8, 32, 32, 32, 384), (8, 16, 16, 16, 768),
     (8, 8, 8, 8, 1536), (8, 64, 64, 64, 96),
 ]
+# (B, (D, H, W), C, O) of the 16 dense 3³ convs of the 8 res blocks of a
+# batch-8 forward (encoder1-4, decoder4-2 and decoder1's conv blocks)
+CONV_MAIN_SHAPES = [
+    (8, (128,) * 3, 4, 48), (8, (128,) * 3, 48, 48), (8, (128,) * 3, 96, 48),
+    (8, (64,) * 3, 48, 48), (8, (64,) * 3, 96, 48), (8, (32,) * 3, 96, 96),
+    (8, (32,) * 3, 192, 96), (8, (16,) * 3, 192, 192), (8, (16,) * 3, 384, 192),
+]
+CONV_TEST_SHAPES = [(1, (8, 8, 16), 4, 8), (1, (4, 16, 8), 6, 5), (2, (4, 8, 8), 3, 4)]
+# (B, (D, H, W), Ch, C) of the 8 CCF-FFN tails of a batch-8 forward, and an odd one
+FFN_MAIN_SHAPES = [
+    (8, (64,) * 3, 192, 48), (8, (32,) * 3, 384, 96), (8, (16,) * 3, 768, 192),
+    (8, (8,) * 3, 1536, 384),
+]
+FFN_ODD_SHAPE = (2, (5, 6, 7), 64, 16)
+# fp32 operations per hidden element of the tail outside the Dense:
+# 27 multiply-adds of the stencil (54), the bias (1), LayerNorm (sum, centre,
+# square-add, scale, shift: 8) and GELU (about 12 with its erf)
+FFN_FP32_OPS_PER_ELEMENT = 75
 # kernel vs plain version: fp32 sums in another order (TF32 off); in bf16
 # both sides round an fp32 result to bf16 (2^-7 relative) and attention
 # rounds its probabilities to bf16 before PV at other points
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1.6e-2, 2e-2)}
+# a block's output against the module's, bf16: the module and the kernel path
+# each round a conv output to bf16 before an InstanceNorm, and one rounding
+# flip there moves the normalised output by ulp(y)/σ (up to 0.031 at |y|/σ
+# up to 8) wherever the output lies, zero included; the atol covers one such
+# flip, and the relative RMS error of the whole output stays below 1e-2
+BLOCK_TOL = (1.6e-2, 4e-2)
+BLOCK_REL_RMS = 1e-2
 
 
 def log(msg):
@@ -231,6 +270,218 @@ def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac
     return ok, {"window_attention": stream_counts[0], "dwconv3": stream_counts[1]}
 
 
+def bound(nbytes, t_ops_s):
+    """(bound_ms, bound_by): the larger of the bytes at the HBM rate and the
+    operations' time at their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = t_ops_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_conv(cc, fc):
+    """Phase 6: conv3.cu as conv3x3x3_same (DHWC), conv3x3x3_cw (DHCW) and
+    conv3x3x3_fused (prologue + statistics) against the plain versions."""
+    dev = torch.device("cuda")
+    rows = {"conv3x3x3_same": [], "conv3x3x3_cw": [], "conv3x3x3_fused": []}
+    ok = True
+    for b, dhw, c, o in CONV_MAIN_SHAPES + CONV_TEST_SHAPES:
+        main_shape = (b, dhw, c, o) in CONV_MAIN_SHAPES
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(b, *dhw, c, device=dev, generator=g)
+        w = torch.randn(3, 3, 3, c, o, device=dev, generator=g) * (27 * c) ** -0.5
+        pro = (torch.randn(b, c, device=dev, generator=g) * 0.5,
+               torch.rand(b, c, device=dev, generator=g) + 0.5)
+        n = int(np.prod(dhw))
+        shape = [b, *dhw, c, o]
+        rs = {k: {"kernel": k, "shape": shape} for k in rows}
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            xx = x.to(dt)
+            want = cc.conv3x3x3_reference(xx, w)
+            for k, fn in (("conv3x3x3_same", cc.conv3x3x3_batched),
+                          ("conv3x3x3_cw", cc.conv3x3x3_same_v2)):
+                good, err = within(fn(xx, w, block_h=1), want, name)
+                ok &= good
+                rs[k][f"max_err_{name}"] = err
+            del want
+            y, st = fc.conv3x3x3_fused(xx, w, prologue=pro, emit_stats=True)
+            wy, wst = fc.conv3x3x3_fused_reference(xx, w, prologue=pro, emit_stats=True)
+            good, err = within(y, wy, name)
+            # [Σ, Σ²] of the fp32 accumulator: equal inputs, another order;
+            # Σ against its natural scale √(n·Σ²), Σ² against itself
+            scale = torch.stack([torch.sqrt(n * wst[:, 1]), wst[:, 1]], dim=1)
+            st_err = float(((st - wst).abs() / scale).max())
+            # per-instance mean and rstd against plain InstanceNorm statistics
+            km, kr = fc.moments_from_stats(st, n)
+            var, mu = torch.var_mean(wy.float(), dim=(1, 2, 3), unbiased=False)
+            mom_err = max(float(((km - mu).abs() / (var.sqrt() + 1e-3)).max()),
+                          float((kr * torch.sqrt(var + 1e-5) - 1).abs().max()))
+            y2, st2 = fc.conv3x3x3_fused(xx, w, prologue=pro, emit_stats=True)
+            same = torch.equal(st, st2) and torch.equal(y, y2)
+            ok &= good and st_err <= 1e-4 and mom_err <= 1e-3 and same
+            rs["conv3x3x3_fused"].update({f"max_err_{name}": err, f"stats_rel_err_{name}": st_err,
+                                          f"moments_err_{name}": mom_err,
+                                          f"stats_bit_identical_{name}": same})
+            del xx, y, wy, y2
+        if main_shape:
+            xx = x.to(torch.bfloat16)
+            x_cw = xx.transpose(-1, -2).contiguous()
+            xcf = xx.permute(0, 4, 1, 2, 3)
+            wt = w.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous()
+            lib_ms = cuda_ms(lambda: F.conv3d(xcf, wt, padding=1), iters=5, warmup=1)
+            nbytes = 2 * b * n * (c + o) + 2 * 27 * c * o
+            bms, by = bound(nbytes, 2 * b * n * 27 * c * o / BF16_TENSOR_FLOPS)
+            timed = {
+                "conv3x3x3_same": (lambda: cc.conv3x3x3_batched(xx, w, block_h=1),
+                                   lambda: cc.conv3x3x3_reference(xx, w)),
+                "conv3x3x3_cw": (lambda: cc.conv3x3x3_cw(x_cw, w, block_h=1),
+                                 lambda: cc.conv3x3x3_cw_reference(x_cw, w)),
+                "conv3x3x3_fused": (
+                    lambda: fc.conv3x3x3_fused(xx, w, prologue=pro, emit_stats=True),
+                    lambda: fc.conv3x3x3_fused_reference(xx, w, prologue=pro, emit_stats=True)),
+            }
+            for k, (kern, plain) in timed.items():
+                rs[k].update({"kernel_ms": cuda_ms(kern, iters=5, warmup=1),
+                              "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                              "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
+            del xx, x_cw, xcf
+        for k, r in rs.items():
+            log(json.dumps(r))
+            rows[k].append(r)
+        del x
+        torch.cuda.empty_cache()
+    return ok, rows
+
+
+def check_ffn_tail(ft):
+    """Phase 7: ffn_tail.cu against `ffn_tail_reference`."""
+    dev = torch.device("cuda")
+    rows, ok = [], True
+    for b, dhw, ch, c in FFN_MAIN_SHAPES + [FFN_ODD_SHAPE]:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        h1 = torch.randn(b, *dhw, ch, device=dev, generator=g)
+        r = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=g) * scale
+        params = (r(3, 3, 3, ch, scale=0.2), r(ch, scale=0.1), 1 + r(ch, scale=0.1),
+                  r(ch, scale=0.1), r(ch, c, scale=ch**-0.5), r(c, scale=0.1))
+        row = {"kernel": "ffn_tail", "shape": [b, *dhw, ch, c]}
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            hh = h1.to(dt)
+            good, err = within(ft.ffn_tail(hh, *params), ft.ffn_tail_reference(hh, *params), name)
+            ok &= good
+            row[f"max_err_{name}"] = err
+        if (b, dhw, ch, c) in FFN_MAIN_SHAPES:
+            hh = h1.to(torch.bfloat16)
+            vox = b * int(np.prod(dhw))
+            nbytes = 2 * vox * (ch + c) + 4 * 30 * ch + 2 * ch * c + 4 * c
+            t_ops = max(FFN_FP32_OPS_PER_ELEMENT * vox * ch / FP32_FLOPS,
+                        2 * vox * ch * c / BF16_TENSOR_FLOPS)
+            bms, by = bound(nbytes, t_ops)
+            row.update({"kernel_ms": cuda_ms(lambda: ft.ffn_tail(hh, *params), iters=10),
+                        "plain_ms": cuda_ms(lambda: ft.ffn_tail_reference(hh, *params), iters=5),
+                        "library_ms": None, "bound_ms": bms, "bound_by": by})
+        log(json.dumps(row))
+        rows.append(row)
+        del h1
+        torch.cuda.empty_cache()
+    return ok, rows
+
+
+def path_err(got, want):
+    """(ok, numbers) of a block's output against the module's, bf16."""
+    rtol, atol = BLOCK_TOL
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ratio = err / (atol + rtol * w.abs())
+    worst = int(ratio.argmax())
+    out = {"max_err": float(err.max()), "outside_tol": int((ratio > 1).sum()),
+           "worst_tol_ratio": float(ratio.reshape(-1)[worst]),
+           "worst_want": float(w.reshape(-1)[worst]), "worst_got": float(g.reshape(-1)[worst]),
+           "rel_rms": float(err.norm() / w.norm())}
+    return out["outside_tol"] == 0 and out["rel_rms"] <= BLOCK_REL_RMS, out
+
+
+def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
+    """Phase 8: the flagship's 8 UnetResBlocks and 8 CCF-FFN tails on the
+    kernels, each against the module's own output in one bf16 forward."""
+    from waveformer_tpu_torch.models.conv_blocks import UnetResBlock
+    from waveformer_tpu_torch.models.layers import CCF_FFN
+
+    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=SEED)
+    captured = []
+    handles = [
+        m.register_forward_hook(lambda mod, args, out, name=name: captured.append(
+            (name, mod, args[0], out)))
+        for name, m in model.named_modules() if isinstance(m, (UnetResBlock, CCF_FFN))
+    ]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(8, 4, 128, 128, 128, device="cuda", generator=g).to(torch.bfloat16)
+    with torch.inference_mode():
+        model(x)
+    for h in handles:
+        h.remove()
+    del x
+    blocks = [t for t in captured if isinstance(t[1], UnetResBlock)]
+    ffns = [t for t in captured if isinstance(t[1], CCF_FFN)]
+    ok = len(blocks) == 8 and len(ffns) == 8
+
+    def conv_dhwc(a, k):  # the unfused conv kernel, channels-last
+        return cc.conv3x3x3_batched(a, k, block_h=1)
+
+    def conv_dhcw(a, k):  # the unfused conv kernel in the (D, H, C, W) layout
+        return cc.conv3x3x3_same_v2(a, k, block_h=1)
+
+    for k in cc.launches:
+        cc.launches[k] = 0
+    fc.launches = ft.launches = 0
+    rows = []
+    with torch.inference_mode():
+        for name, m, xin, want in blocks:
+            ws = fc.res_block_weights(m)
+            row = {"check": "conv_block", "block": name, "shape": list(xin.shape),
+                   "out_channels": want.shape[-1]}
+            for key, fn in (
+                ("fused", lambda: fc.res_block_fused_module(m, xin)),
+                ("conv3_dhwc", lambda: fc.res_block_reference(xin, *ws, conv=conv_dhwc)),
+                ("conv3_dhcw", lambda: fc.res_block_reference(xin, *ws, conv=conv_dhcw)),
+            ):
+                good, err = path_err(fn(), want)
+                ok &= good
+                row.update({f"{k}_{key}": v for k, v in err.items()})
+            rows.append(row)
+        for name, m, xin, want in ffns:
+            good, err = path_err(ft.ffn_tail_module(m, xin), want)
+            ok &= good
+            rows.append({"check": "ffn_tail", "block": name, "shape": list(xin.shape),
+                         **{f"{k}_fused": v for k, v in err.items()}})
+        torch.cuda.synchronize()
+    counts = {"conv3x3x3_fused": fc.launches, "ffn_tail": ft.launches,
+              "conv3x3x3_same": cc.launches["conv3x3x3_same"] + cc.launches["conv3x3x3_batched"],
+              "conv3x3x3_cw": cc.launches["conv3x3x3_cw"] + cc.launches["conv3x3x3_same_v2"]}
+    ok &= counts == {"conv3x3x3_fused": 16, "ffn_tail": 8, "conv3x3x3_same": 16,
+                     "conv3x3x3_cw": 16}
+
+    # per-block times, after the counts are read
+    with torch.inference_mode():
+        for row, (name, m, xin, _) in zip(rows, blocks + ffns):
+            if row["check"] == "conv_block":
+                ws = fc.res_block_weights(m)
+                row["fused_ms"] = cuda_ms(lambda: fc.res_block_fused_module(m, xin), iters=3,
+                                          warmup=1)
+                row["conv3_dhwc_ms"] = cuda_ms(
+                    lambda: fc.res_block_reference(xin, *ws, conv=conv_dhwc), iters=3, warmup=1)
+            else:
+                row["fused_ms"] = cuda_ms(lambda: ft.ffn_tail_module(m, xin), iters=3, warmup=1)
+            row["module_ms"] = cuda_ms(lambda: m(xin), iters=3, warmup=1)
+            log(json.dumps(row))
+    log(json.dumps({"check": "conv_block_path", "launches": counts,
+                    "fused_ms": sum(r["fused_ms"] for r in rows),
+                    "module_ms": sum(r["module_ms"] for r in rows)}))
+    del captured, blocks, ffns
+    torch.cuda.empty_cache()
+    return ok, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -241,7 +492,10 @@ def main():
         from waveformer_tpu_torch.models import create_waveformer
         from waveformer_tpu_torch.ops import _build
         from waveformer_tpu_torch.ops import attention_cuda as ac
+        from waveformer_tpu_torch.ops import conv_cuda as cc
         from waveformer_tpu_torch.ops import dwconv_cuda as dc
+        from waveformer_tpu_torch.ops import ffn_tail_cuda as ft
+        from waveformer_tpu_torch.ops import fused_conv_cuda as fc
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -273,27 +527,49 @@ def main():
         create_waveformer, Config, SlidingWindowInferer, Predictor, ac, dc)
     if not ok:
         failed.append("main_path")
+    ok, conv_rows = check_conv(cc, fc)
+    results.update(conv_rows)
+    if not ok:
+        failed.append("conv3")
+    ok, results["ffn_tail"] = check_ffn_tail(ft)
+    if not ok:
+        failed.append("ffn_tail")
+    ok, block_launches = run_conv_block_path(create_waveformer, Config, cc, fc, ft)
+    if not ok:
+        failed.append("conv_block_path")
+    launches.update(block_launches)
     for name, n in launches.items():
         if n == 0:
-            failed.append(f"{name} never launched on the main path")
+            failed.append(f"{name} never launched on its path")
 
-    def headline(rows, kname, route, source, replaces):
-        r = next(r for r in rows if "kernel_ms" in r)  # the largest main-path call
-        return {"name": kname, "route": route, "source": source, "replaces": replaces,
+    def headline(rows, kname, source, replaces, **extra):
+        # the main-path call with the largest bound
+        r = max((r for r in rows if "kernel_ms" in r), key=lambda r: r["bound_ms"])
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[kname],
                 "max_abs_err": max(max(x["max_err_float32"], x["max_err_bfloat16"])
                                    for x in rows),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "shape": r["shape"]}
+                "shape": r["shape"], **extra}
 
+    conv_src = "waveformer_tpu_torch/csrc/conv3.cu"
+    cudnn = {"library_call": "F.conv3d, bf16, the conv alone (cuDNN)"}
     log(json.dumps({"kernels": [
-        headline(results["attention"], "window_attention", "cuda",
+        headline(results["attention"], "window_attention",
                  "waveformer_tpu_torch/csrc/window_attention.cu",
                  "waveformer_tpu/ops/attention_pallas.py:34"),
-        headline(results["dwconv3"], "dwconv3", "cuda",
+        headline(results["dwconv3"], "dwconv3",
                  "waveformer_tpu_torch/csrc/dwconv3.cu",
                  "waveformer_tpu/ops/dwconv_pallas.py:32"),
+        headline(results["conv3x3x3_same"], "conv3x3x3_same", conv_src,
+                 "waveformer_tpu/ops/conv_pallas.py:51", **cudnn),
+        headline(results["conv3x3x3_cw"], "conv3x3x3_cw", conv_src,
+                 "waveformer_tpu/ops/conv_pallas.py:154", **cudnn),
+        headline(results["ffn_tail"], "ffn_tail", "waveformer_tpu_torch/csrc/ffn_tail.cu",
+                 "tools/exp_ffn_pallas.py:149"),
+        headline(results["conv3x3x3_fused"], "conv3x3x3_fused", conv_src,
+                 "tools/exp_fused_conv.py:120", **cudnn),
     ]}))
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

@@ -14,8 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from waveformer_tpu_torch.models.conv_blocks import UnetResBlock
+from waveformer_tpu_torch.models.layers import CCF_FFN
 from waveformer_tpu_torch.ops import attention_cuda as tac
+from waveformer_tpu_torch.ops import conv_cuda as tcc
 from waveformer_tpu_torch.ops import dwconv_cuda as tdc
+from waveformer_tpu_torch.ops import ffn_tail_cuda as tft
+from waveformer_tpu_torch.ops import fused_conv_cuda as tfc
 
 # the WaveFormer shapes, then every head dim of both kernel paths (bf16 with
 # D % 16 == 0 and N <= 512 runs on tensor cores, the rest on FMA loops)
@@ -95,3 +100,95 @@ class TestKernelsOnCard:
         torch.testing.assert_close(tac.window_attention(qbuf[1:].view_as(q), k, v, bu, 0.5),
                                    tac.window_attention_reference(q, k, v, b, 0.5),
                                    rtol=1e-5, atol=1e-4)
+
+
+# (B, D, H, W), C, O: the JAX tests' shapes, C = 3…6 and O = 4…8 (the K-chunk
+# and the n-tile padded on chip only), the flagship's widths at small extents
+CONV_SHAPES = [((1, 8, 8, 16), 4, 8), ((1, 4, 16, 8), 6, 5), ((2, 4, 8, 8), 3, 4),
+               ((2, 6, 5, 7), 48, 48), ((1, 5, 6, 7), 96, 48), ((1, 4, 4, 4), 192, 192)]
+
+
+def _conv_inputs(bdhw, cin, cout, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(*bdhw, cin, device=device, generator=g)
+    w = torch.randn(3, 3, 3, cin, cout, device=device, generator=g) * (27 * cin) ** -0.5
+    return x, w
+
+
+@pytest.mark.cuda
+class TestConvKernelsOnCard:
+    @pytest.mark.parametrize("bdhw,cin,cout", CONV_SHAPES)
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_conv3_both_layouts_match_plain(self, cuda_device, bdhw, cin, cout, dtype, rtol,
+                                            atol):
+        x, w = _conv_inputs(bdhw, cin, cout, cuda_device)
+        x = x.to(dtype)
+        want = tcc.conv3x3x3_reference(x, w).float()
+        for got in (tcc.conv3x3x3_batched(x, w, block_h=bdhw[2]),
+                    tcc.conv3x3x3_same_v2(x, w, block_h=bdhw[2]),
+                    tcc.conv3x3x3_same(x[0], w, block_h=bdhw[2])[None]):
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            torch.testing.assert_close(got.float(), want[: got.shape[0]], rtol=rtol, atol=atol)
+
+    @pytest.mark.parametrize("bdhw,cin,cout", CONV_SHAPES)
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_fused_matches_plain(self, cuda_device, bdhw, cin, cout, dtype, rtol, atol):
+        x, w = _conv_inputs(bdhw, cin, cout, cuda_device, seed=1)
+        x = x.to(dtype)
+        b = bdhw[0]
+        pro = (torch.rand(b, cin, device=cuda_device) - 0.5, torch.rand(b, cin, device=cuda_device) + 0.5)
+        for prologue in (None, pro):
+            y, st = tfc.conv3x3x3_fused(x, w, prologue=prologue, emit_stats=True)
+            wy, wst = tfc.conv3x3x3_fused_reference(x, w, prologue=prologue, emit_stats=True)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), wy.float(), rtol=rtol, atol=atol)
+            # fp32 sums of products of equal (rounded) inputs in other orders
+            torch.testing.assert_close(st, wst, rtol=1e-4, atol=1e-4 * float(wst.abs().max()))
+            y2, st2 = tfc.conv3x3x3_fused(x, w, prologue=prologue, emit_stats=True)
+            assert torch.equal(st, st2) and torch.equal(y, y2)
+
+    @pytest.mark.parametrize("cin,cout", [(4, 8), (16, 16)])
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_res_block_fused_matches_module(self, cuda_device, cin, cout, dtype, rtol, atol):
+        torch.manual_seed(0)
+        block = UnetResBlock(cin, cout).to(cuda_device, dtype)
+        x = torch.randn(2, 6, 8, 5, cin, device=cuda_device).to(dtype)
+        with torch.no_grad():
+            got = tfc.res_block_fused_module(block, x)
+            want = block(x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=4 * rtol, atol=4 * atol)
+
+    @pytest.mark.parametrize("shape,c_out", [((2, 6, 5, 7, 64), 16), ((1, 8, 8, 8, 192), 48),
+                                             ((1, 4, 4, 4, 1536), 384), ((1, 3, 5, 7, 16), 8)])
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_ffn_tail_matches_plain(self, cuda_device, shape, c_out, dtype, rtol, atol):
+        torch.manual_seed(1)
+        ffn = CCF_FFN(c_out, shape[-1]).to(cuda_device, dtype)
+        h1 = torch.randn(shape, device=cuda_device).to(dtype)
+        args = (h1, ffn.dwconv.weight[:, 0].permute(1, 2, 3, 0), ffn.dwconv.bias,
+                ffn.norm2.weight, ffn.norm2.bias, ffn.fc.weight.t(), ffn.fc.bias)
+        with torch.no_grad():
+            got = tft.ffn_tail(*args)
+            want = tft.ffn_tail_reference(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+    def test_unsupported_dtype_raises(self, cuda_device):
+        x = torch.zeros(1, 2, 8, 4, 8, device=cuda_device, dtype=torch.float16)
+        w = torch.zeros(3, 3, 3, 8, 8, device=cuda_device)
+        before = (dict(tcc.launches), tfc.launches, tft.launches)
+        with pytest.raises(TypeError):
+            tcc.conv3x3x3_batched(x, w)
+        with pytest.raises(TypeError):
+            tfc.conv3x3x3_fused(x, w)
+        with pytest.raises(TypeError):
+            tft.ffn_tail(x, torch.zeros(3, 3, 3, 8, device=cuda_device),
+                         *(torch.zeros(8, device=cuda_device) for _ in range(3)),
+                         torch.zeros(8, 8, device=cuda_device), torch.zeros(8, device=cuda_device))
+        with pytest.raises(ValueError):  # bf16 tail needs 16-deep K steps
+            tft.ffn_tail(x.to(torch.bfloat16), torch.zeros(3, 3, 3, 8, device=cuda_device),
+                         *(torch.zeros(8, device=cuda_device) for _ in range(3)),
+                         torch.zeros(8, 8, device=cuda_device), torch.zeros(8, device=cuda_device))
+        assert (dict(tcc.launches), tfc.launches, tft.launches) == before

@@ -1,6 +1,10 @@
-// Shared helpers for the hand-written Hopper kernels: dtype conversion and
-// 8-element vector loads/stores (16 bytes of bf16, 32 bytes of fp32).
+// Shared helpers for the hand-written Hopper kernels: dtype conversion,
+// 8-element vector loads/stores (16 bytes of bf16, 32 bytes of fp32), the
+// bf16 tensor-core product (mma.sync.m16n8k16, fp32 accumulation) and
+// asynchronous copies to shared memory (cp.async).
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +58,54 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// d += a·b on one m16n8k16 tile: a (16×16 bf16, row-major fragments), b
+// (16×8 bf16, column-major fragments), d (16×8 fp32). Fragment layout, with
+// g = lane / 4 and t = lane % 4: a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
+// a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],
+// b1 = B[2t+8..2t+9][g]; d[0..1] = D[g][2t..2t+1], d[2..3] = D[g+8][2t..].
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two consecutive bf16 as one 32-bit word; `p` must be 4-byte aligned.
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Asynchronous copy of kBytes (4, 8 or 16) from global to shared memory,
+// cached in L1 (ca: for data the block reads again) or, for 16 bytes, in L2
+// only (cg); with `valid` false nothing is read and the destination is
+// zero-filled. `gmem` must still be a valid address.
+template <int kBytes, bool kL1 = true>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src = valid ? kBytes : 0;
+  if constexpr (kL1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+                 "n"(kBytes), "r"(src));
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace wft
