@@ -28,7 +28,13 @@ Phases, each of which must pass:
      plain conv kernel in both layouts (`res_block_reference`), and every
      FFN through the fused tail (`ffn_tail_module`), each against the
      module's own output; launches are counted over that run, and each
-     block's time on each path is printed.
+     block's time on each path is printed;
+  9. the int8 probe's path: the bf16 → fp32 and int8 → int32 tiled-matmul
+     kernels (`csrc/tiled_matmul.cu`) against their plain version at the
+     probe's shapes and odd ones, in all four (type, perturbation) variants
+     and three values of s[0] (int8 bit-equal), then the probe's entry point
+     `waveformer_tpu_torch.tools.exp_int8_mxu.run` with exact launch counts
+     and the kernels' times beside cuBLAS's.
 The last lines are a `{"kernels": [...]}` JSON line, the card line, and
 `{"ok": true, "device": {...}}`. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -89,6 +95,15 @@ TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1.6e-2, 2e-2)}
 # flip, and the relative RMS error of the whole output stays below 1e-2
 BLOCK_TOL = (1.6e-2, 4e-2)
 BLOCK_REL_RMS = 1e-2
+# (M, K, N) of the tiled-matmul checks: the int8 probe's shapes, then odd
+# ones (a ragged row block, N % 16 == 8, a K tail of half a stage)
+TM_SHAPES = [(32768, 1024, 512), (16384, 2048, 512), (96, 48, 40), (64, 2080, 24)]
+TM_S_VALUES = (0.0, 3.7, -2.5)
+# bf16 → fp32 kernel vs plain: equal products summed in another order, and the
+# tensor cores' fp32 sums are not rounded to nearest (≤ about 2^-22 of Σ|x||w|
+# per 16-deep K-step, 130 steps at K = 2080): 1e-4 of Σ|x'||w| + |s0|
+TM_RTOL = 1e-4
+TM_ITERS = 64
 
 
 def log(msg):
@@ -482,6 +497,84 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
     return ok, counts
 
 
+def tiled_matmul_inputs(kind, m, k, n, s0, tm):
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    if kind == "bf16":
+        x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(k, n, device="cuda", generator=g).to(torch.bfloat16)
+    else:
+        x = torch.randint(-127, 127, (m, k), device="cuda", generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 127, (k, n), device="cuda", generator=g, dtype=torch.int8)
+        x[0, :4] = torch.tensor([126, 125, -127, -126], dtype=torch.int8)  # x ⊕ s wraps
+    s = torch.zeros(8, device="cuda")
+    s[0] = s0
+    return s, x, w, tm.PAIRS[x.dtype][1]
+
+
+def check_tiled_matmul(tm):
+    """Phase 9, first half: both tiled-matmul kernels against the plain
+    version in all four (type, perturbation) variants; int8 bit-equal, bf16
+    within TM_RTOL of Σ|x'||w| + |s0| (x' the perturbed input)."""
+    ok, rows = True, []
+    for m, k, n in TM_SHAPES:
+        for kind in ("bf16", "int8"):
+            row = {"kernel": f"tiled_matmul_{kind}", "shape": [m, k, n]}
+            for perturb_out in (False, True):
+                for s0 in TM_S_VALUES:
+                    s, x, w, out_dtype = tiled_matmul_inputs(kind, m, k, n, s0, tm)
+                    got = tm.tiled_matmul(s, x, w, out_dtype=out_dtype, perturb_out=perturb_out)
+                    want = tm.tiled_matmul_reference(s, x, w, out_dtype=out_dtype,
+                                                     perturb_out=perturb_out)
+                    torch.cuda.synchronize()
+                    key = f"perturb_{'out' if perturb_out else 'in'}_s{s0:g}"
+                    if kind == "int8":
+                        good = torch.equal(got, want)
+                        err = float((got.double() - want.double()).abs().max())
+                    else:
+                        scale = (x.float().abs() + abs(s0)) @ w.float().abs() + abs(s0)
+                        diff = (got - want).abs()
+                        good = bool(torch.isfinite(got).all()) and bool(
+                            (diff <= TM_RTOL * scale).all())
+                        err = float(diff.max())
+                    ok &= good
+                    row[key] = err
+                    del x, w, got, want
+            log(json.dumps(row))
+            rows.append(row)
+    return ok, rows
+
+
+def run_int8_probe(tm, probe):
+    """Phase 9, second half: the probe's entry point (`run`, 64 timed calls
+    per shape and type), with exact launch counts, then the plain version's
+    time at the largest shape."""
+    for k in tm.launches:
+        tm.launches[k] = 0
+    rows = probe.run(iters=TM_ITERS)
+    counts = dict(tm.launches)
+    per_kind = len(probe.SHAPES) * (TM_ITERS + 1)  # device_time's warm-up and 64 calls
+    ok = counts == {"tiled_matmul_bf16": per_kind, "tiled_matmul_int8": per_kind}
+    for r in rows:
+        ok &= all(np.isfinite(r[k]) and r[k] > 0 for k in ("us", "top_s", "library_us"))
+        log(json.dumps(r))
+    entries = []
+    for kind in ("bf16", "int8"):
+        r = max((r for r in rows if r["dtype"] == kind), key=lambda r: r["bound_us"])
+        s, x, w, out_dtype = tiled_matmul_inputs(kind, r["M"], r["K"], r["N"], 0.0, tm)
+        plain_ms = cuda_ms(lambda: tm.tiled_matmul_reference(
+            s, x, w, out_dtype=out_dtype, perturb_out=kind == "int8"), iters=5, warmup=1)
+        entries.append({"name": f"tiled_matmul_{kind}", "ms": r["us"] / 1e3,
+                        "plain_ms": plain_ms, "bound_ms": r["bound_us"] / 1e3,
+                        "bound_by": r["bound_by"], "library_ms": r["library_us"] / 1e3,
+                        "library_call": r["library_call"], "shape": [r["M"], r["K"], r["N"]],
+                        "int8_speedup_kernel": r["int8_speedup_kernel"],
+                        "int8_speedup_library": r["int8_speedup_library"]})
+        del x, w
+    log(json.dumps({"check": "int8_probe", "launches": counts, "expected_per_kind": per_kind}))
+    torch.cuda.empty_cache()
+    return ok, counts, entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -496,6 +589,8 @@ def main():
         from waveformer_tpu_torch.ops import dwconv_cuda as dc
         from waveformer_tpu_torch.ops import ffn_tail_cuda as ft
         from waveformer_tpu_torch.ops import fused_conv_cuda as fc
+        from waveformer_tpu_torch.ops import tiled_matmul_cuda as tm
+        from waveformer_tpu_torch.tools import exp_int8_mxu as probe
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -538,6 +633,13 @@ def main():
     if not ok:
         failed.append("conv_block_path")
     launches.update(block_launches)
+    ok, results["tiled_matmul"] = check_tiled_matmul(tm)
+    if not ok:
+        failed.append("tiled_matmul")
+    ok, probe_launches, probe_entries = run_int8_probe(tm, probe)
+    if not ok:
+        failed.append("int8_probe")
+    launches.update(probe_launches)
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")
@@ -570,6 +672,11 @@ def main():
                  "tools/exp_ffn_pallas.py:149"),
         headline(results["conv3x3x3_fused"], "conv3x3x3_fused", conv_src,
                  "tools/exp_fused_conv.py:120", **cudnn),
+        *({"route": "cuda", "source": "waveformer_tpu_torch/csrc/tiled_matmul.cu",
+           "replaces": "tools/exp_int8_mxu.py:26", "launches": launches[e["name"]],
+           "max_abs_err": max(v for r in results["tiled_matmul"] if r["kernel"] == e["name"]
+                              for k, v in r.items() if k.startswith("perturb_")),
+           **e} for e in probe_entries),
     ]}))
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

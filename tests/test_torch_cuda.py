@@ -7,7 +7,10 @@ imports no JAX, so it runs where only PyTorch is installed:
 
 Tolerances: fp32 sums run in another order (TF32 off); in bf16 both sides
 round an fp32 result to bf16 (one ulp, 2^-7 relative), and the attention
-probabilities are rounded to bf16 before PV at other points.
+probabilities are rounded to bf16 before PV at other points. The tiled
+matmul: int8 → int32 is exact; bf16 → fp32 sums equal products in another
+order, and the tensor cores do not round their fp32 sums to nearest: 1e-4 of
+Σ|x'||w| + |s0|.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from waveformer_tpu_torch.ops import conv_cuda as tcc
 from waveformer_tpu_torch.ops import dwconv_cuda as tdc
 from waveformer_tpu_torch.ops import ffn_tail_cuda as tft
 from waveformer_tpu_torch.ops import fused_conv_cuda as tfc
+from waveformer_tpu_torch.ops import tiled_matmul_cuda as ttm
 
 # the WaveFormer shapes, then every head dim of both kernel paths (bf16 with
 # D % 16 == 0 and N <= 512 runs on tensor cores, the rest on FMA loops)
@@ -192,3 +196,53 @@ class TestConvKernelsOnCard:
                          *(torch.zeros(8, device=cuda_device) for _ in range(3)),
                          torch.zeros(8, 8, device=cuda_device), torch.zeros(8, device=cuda_device))
         assert (dict(tcc.launches), tfc.launches, tft.launches) == before
+
+
+# (M, K, N): a ragged row block with N % 16 == 8, a K tail of half a stage,
+# and one of the int8 probe's shapes
+TM_SHAPES = [(96, 48, 40), (64, 2080, 24), (16384, 2048, 512)]
+
+
+def _tm_inputs(kind, m, k, n, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "bf16":
+        return (torch.randn(m, k, device=device, generator=g).to(torch.bfloat16),
+                torch.randn(k, n, device=device, generator=g).to(torch.bfloat16))
+    return (torch.randint(-127, 127, (m, k), device=device, generator=g, dtype=torch.int8),
+            torch.randint(-127, 127, (k, n), device=device, generator=g, dtype=torch.int8))
+
+
+@pytest.mark.cuda
+class TestTiledMatmulOnCard:
+    @pytest.mark.parametrize("perturb_out", [False, True])
+    @pytest.mark.parametrize("kind", ["bf16", "int8"])
+    @pytest.mark.parametrize("m,k,n", TM_SHAPES)
+    def test_matches_plain(self, cuda_device, m, k, n, kind, perturb_out):
+        x, w = _tm_inputs(kind, m, k, n, cuda_device)
+        out_dtype = ttm.PAIRS[x.dtype][1]
+        for s0 in (0.0, 3.7, -2.5):
+            s = torch.zeros(8, device=cuda_device)
+            s[0] = s0
+            before = dict(ttm.launches)
+            got = ttm.tiled_matmul(s, x, w, out_dtype=out_dtype, perturb_out=perturb_out)
+            want = ttm.tiled_matmul_reference(s, x, w, out_dtype=out_dtype,
+                                              perturb_out=perturb_out)
+            torch.cuda.synchronize()
+            assert ttm.launches[f"tiled_matmul_{kind}"] == before[f"tiled_matmul_{kind}"] + 1
+            assert got.dtype == out_dtype and tuple(got.shape) == (m, n)
+            if kind == "int8":
+                assert torch.equal(got, want)
+            else:
+                scale = (x.float().abs() + abs(s0)) @ w.float().abs() + abs(s0)
+                assert bool(((got - want).abs() <= 1e-4 * scale).all())
+
+    def test_raises_on_misaligned_k(self, cuda_device):
+        s = torch.zeros(8, device=cuda_device)
+        x, w = _tm_inputs("bf16", 64, 12, 16, cuda_device)
+        before = dict(ttm.launches)
+        with pytest.raises(ValueError):
+            ttm.tiled_matmul(s, x, w, out_dtype=torch.float32, perturb_out=True)
+        x, w = _tm_inputs("int8", 64, 24, 16, cuda_device)
+        with pytest.raises(ValueError):
+            ttm.tiled_matmul(s, x, w, out_dtype=torch.int32, perturb_out=True)
+        assert ttm.launches == before

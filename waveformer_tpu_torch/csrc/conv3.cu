@@ -283,15 +283,7 @@ constexpr int kHC = 16;  // input channels per stage: one mma K-step
 constexpr int kHS = kHC + 8;  // bf16 row stride of the ring: conflict-free ldmatrix
 constexpr int kHaloThreads = 256;
 
-// Four (x4) or two (x2) 8×8 bf16 matrices from shared memory, one row
-// address per lane (lanes 0-7 the first matrix, 8-15 the second, ...).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
+// Two 8×8 bf16 matrices from shared memory (the x4 form is in common.cuh).
 __device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const void* smem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
@@ -447,7 +439,7 @@ __global__ void __launch_bounds__(kHaloThreads, 2) conv3_halo_kernel(Params p) {
 #pragma unroll
       for (int n = 0; n + 1 < NT; n += 2) {
         uint32_t r[4];
-        ldmatrix_x4(r, ws + (j * BN + n * 8 + b_row) * kHS + b_k);
+        wft::ldmatrix_x4(r, ws + (j * BN + n * 8 + b_row) * kHS + b_k);
         bfr[n][0] = r[0];
         bfr[n][1] = r[1];
         bfr[n + 1][0] = r[2];
@@ -461,7 +453,7 @@ __global__ void __launch_bounds__(kHaloThreads, 2) conv3_halo_kernel(Params p) {
       for (int mt = 0; mt < 2; ++mt) {
         // output (h0 + warp, w0 + col) reads halo cell (warp + kh, col + kw)
         uint32_t af[4];
-        ldmatrix_x4(af, hs + ((warp + j / 3) * (kTW + 2) + mt * 16 + a_col + j % 3) * kHS + a_k);
+        wft::ldmatrix_x4(af, hs + ((warp + j / 3) * (kTW + 2) + mt * 16 + a_col + j % 3) * kHS + a_k);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           // a fresh fragment per product, added to the IEEE fp32 total

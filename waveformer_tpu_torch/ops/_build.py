@@ -103,6 +103,13 @@ class KernelLibraries:
 LIBRARIES = KernelLibraries()
 
 
+def aligned16(t):
+    """`t` contiguous and 16-byte aligned (the kernels load 16-byte vectors),
+    copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a nonzero `cudaError_t`."""
     if err != 0:

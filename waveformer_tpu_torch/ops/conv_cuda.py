@@ -80,9 +80,7 @@ def launch(
     if w.shape[:4] != (3, 3, 3, c) or w.dim() != 5:
         raise ValueError(f"conv3: weights {tuple(w.shape)} != (3, 3, 3, {c}, O)")
     o = w.shape[-1]
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel loads 16-byte vectors
-        x = x.clone()
+    x = _build.aligned16(x)
     # (O rounded up to 64, 27·C rounded up to 8), k = tap·C + c, zero-padded
     wk = torch.zeros((-(-o // 64) * 64, -(-27 * c // 8) * 8), dtype=x.dtype, device=x.device)
     wk[:o, : 27 * c] = w.permute(4, 0, 1, 2, 3).reshape(o, 27 * c)

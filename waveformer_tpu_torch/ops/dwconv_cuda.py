@@ -48,9 +48,7 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dwconv3 kernel shape {tuple(kernel.shape)} != (3,3,3,{c})")
     if not (x.is_cuda and kernel.is_cuda):
         raise ValueError("dwconv3: inputs must be CUDA tensors")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel loads 16-byte vectors
-        x = x.clone()
+    x = _build.aligned16(x)
     wts = kernel.to(torch.float32).contiguous()
     out = torch.empty_like(x)
     fn = _build.LIBRARIES.get("dwconv3").wft_dwconv3

@@ -50,11 +50,6 @@ def ffn_tail_reference(h1, dw_w, dw_b, ln_s, ln_b, fc_w, fc_b, eps: float = 1e-5
     return F.linear(out, fc_w.t().to(dt), fc_b.to(dt))
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(h1, dw_w, dw_b, ln_s, ln_b, fc_w, fc_b, eps: float) -> torch.Tensor:
     global launches
     b, d, h, w, ch = h1.shape
@@ -68,8 +63,9 @@ def _launch(h1, dw_w, dw_b, ln_s, ln_b, fc_w, fc_b, eps: float) -> torch.Tensor:
     tensors = (h1, dw_w, dw_b, ln_s, ln_b, fc_w, fc_b)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("ffn_tail: all inputs must be CUDA tensors")
-    f32 = [_aligned(t.to(torch.float32).reshape(-1)) for t in (dw_w, dw_b, ln_s, ln_b, fc_b)]
-    h1 = _aligned(h1)
+    f32 = [_build.aligned16(t.to(torch.float32).reshape(-1))
+           for t in (dw_w, dw_b, ln_s, ln_b, fc_b)]
+    h1 = _build.aligned16(h1)
     fcw = fc_w.t().to(h1.dtype).contiguous()  # (C, Ch)
     out = torch.empty((b, d, h, w, c), dtype=h1.dtype, device=h1.device)
     fn = _build.LIBRARIES.get("ffn_tail").wft_ffn_tail
