@@ -16,7 +16,8 @@ Phases, each of which must pass:
      overlap 0.5) → `Predictor.predict_case` / `predict_cases` on synthetic
      (4, 150, 180, 145) cases; kernel launches are counted over the run;
   6. the dense 3³ conv kernel (`csrc/conv3.cu`) in its three forms (DHWC,
-     DHCW, fused with the InstanceNorm prologue and statistics) against its
+     DHCW, fused with the InstanceNorm prologue and statistics; bf16 DHCW on
+     the TMA + wgmma design, the others on mma.sync) against its
      plain version at the 16 convs of the 8 res blocks of a batch-8 forward
      and the JAX tests' shapes, fp32 and bf16, with `F.conv3d` (cuDNN) as
      the library time;
@@ -27,11 +28,13 @@ Phases, each of which must pass:
      again through the fused conv (`res_block_fused_module`), through the
      plain conv kernel in both layouts (`res_block_reference`), and every
      FFN through the fused tail (`ffn_tail_module`), each against the
-     module's own output; launches are counted over that run, and each
-     block's time on each path is printed;
-  9. the int8 probe's path: the bf16 → fp32 and int8 → int32 tiled-matmul
-     kernels (`csrc/tiled_matmul.cu`) against their plain version at the
-     probe's shapes and odd ones, in all four (type, perturbation) variants
+     module's own output; launches are counted over that run, the conv
+     kernel's also per design (the 16 (D, H, C, W) convs all on TMA +
+     wgmma), and each block's time on each path is printed;
+  9. the int8 probe's path: the bf16 → fp32 (TMA + wgmma) and int8 → int32
+     (mma.sync) tiled-matmul kernels (`csrc/tiled_matmul.cu`) against their
+     plain version at the probe's shapes and odd ones, in all four (type,
+     perturbation) variants
      and three values of s[0] (int8 bit-equal), then the probe's entry point
      `waveformer_tpu_torch.tools.exp_int8_mxu.run` with exact launch counts
      and the kernels' times beside cuBLAS's.
@@ -448,6 +451,8 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
 
     for k in cc.launches:
         cc.launches[k] = 0
+    for k in cc.design_launches:
+        cc.design_launches[k] = 0
     fc.launches = ft.launches = 0
     rows = []
     with torch.inference_mode():
@@ -475,6 +480,10 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
               "conv3x3x3_cw": cc.launches["conv3x3x3_cw"] + cc.launches["conv3x3x3_same_v2"]}
     ok &= counts == {"conv3x3x3_fused": 16, "ffn_tail": 8, "conv3x3x3_same": 16,
                      "conv3x3x3_cw": 16}
+    # every conv3.cu launch by design: the fused and DHWC convs on the halo
+    # kernel, the 16 (D, H, C, W) convs on TMA + wgmma, none on the plain one
+    designs = dict(cc.design_launches)
+    ok &= designs == {"halo_mma": 32, "plain": 0, "tma_wgmma": 16}
 
     # per-block times, after the counts are read
     with torch.inference_mode():
@@ -489,7 +498,7 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
                 row["fused_ms"] = cuda_ms(lambda: ft.ffn_tail_module(m, xin), iters=3, warmup=1)
             row["module_ms"] = cuda_ms(lambda: m(xin), iters=3, warmup=1)
             log(json.dumps(row))
-    log(json.dumps({"check": "conv_block_path", "launches": counts,
+    log(json.dumps({"check": "conv_block_path", "launches": counts, "conv3_designs": designs,
                     "fused_ms": sum(r["fused_ms"] for r in rows),
                     "module_ms": sum(r["module_ms"] for r in rows)}))
     del captured, blocks, ffns
@@ -563,7 +572,8 @@ def run_int8_probe(tm, probe):
         s, x, w, out_dtype = tiled_matmul_inputs(kind, r["M"], r["K"], r["N"], 0.0, tm)
         plain_ms = cuda_ms(lambda: tm.tiled_matmul_reference(
             s, x, w, out_dtype=out_dtype, perturb_out=kind == "int8"), iters=5, warmup=1)
-        entries.append({"name": f"tiled_matmul_{kind}", "ms": r["us"] / 1e3,
+        entries.append({"name": f"tiled_matmul_{kind}", "design": tm.design(x.dtype),
+                        "ms": r["us"] / 1e3,
                         "plain_ms": plain_ms, "bound_ms": r["bound_us"] / 1e3,
                         "bound_by": r["bound_by"], "library_ms": r["library_us"] / 1e3,
                         "library_call": r["library_call"], "shape": [r["M"], r["K"], r["N"]],
@@ -667,7 +677,9 @@ def main():
         headline(results["conv3x3x3_same"], "conv3x3x3_same", conv_src,
                  "waveformer_tpu/ops/conv_pallas.py:51", **cudnn),
         headline(results["conv3x3x3_cw"], "conv3x3x3_cw", conv_src,
-                 "waveformer_tpu/ops/conv_pallas.py:154", **cudnn),
+                 "waveformer_tpu/ops/conv_pallas.py:154",
+                 design=cc.design(torch.bfloat16, cc.DHCW, CONV_MAIN_SHAPES[2][1][2],
+                                  CONV_MAIN_SHAPES[2][2]), **cudnn),
         headline(results["ffn_tail"], "ffn_tail", "waveformer_tpu_torch/csrc/ffn_tail.cu",
                  "tools/exp_ffn_pallas.py:149"),
         headline(results["conv3x3x3_fused"], "conv3x3x3_fused", conv_src,

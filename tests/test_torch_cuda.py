@@ -198,9 +198,63 @@ class TestConvKernelsOnCard:
         assert (dict(tcc.launches), tfc.launches, tft.launches) == before
 
 
+# bf16 (D, H, C, W) on the TMA + wgmma design: every flagship W extent, C and
+# O, at B = 2 with D = 3 and a one-plane D (H = 5 and 9: ragged row blocks)
+TMA_W, TMA_C, TMA_O = [16, 32, 64, 128], [4, 48, 96], [48, 96, 192]
+# W % 8 == 0 extents that are no power of two (ragged W tiles), C that is no
+# multiple of 16, O that leaves a ragged channel block
+TMA_ODD = [(8, 6, 5), (24, 20, 40), (80, 6, 100), (40, 3, 16)]
+
+
+@pytest.mark.cuda
+class TestConvTmaOnCard:
+    def _check(self, device, w_extent, c, o):
+        for d, h in ((3, 5), (1, 9)):
+            x, w = _conv_inputs((2, d, h, w_extent), c, o, device, seed=2)
+            x_cw = x.to(torch.bfloat16).transpose(-1, -2).contiguous()
+            before = dict(tcc.design_launches)
+            got = tcc.conv3x3x3_cw(x_cw, w, block_h=h)
+            want = tcc.conv3x3x3_cw_reference(x_cw, w)
+            torch.cuda.synchronize()
+            assert tcc.design_launches["tma_wgmma"] == before["tma_wgmma"] + 1
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=2e-2)
+
+    @pytest.mark.parametrize("o", TMA_O)
+    @pytest.mark.parametrize("c", TMA_C)
+    @pytest.mark.parametrize("w_extent", TMA_W)
+    def test_dhcw_bf16_matches_plain(self, cuda_device, w_extent, c, o):
+        self._check(cuda_device, w_extent, c, o)
+
+    @pytest.mark.parametrize("w_extent,c,o", TMA_ODD)
+    def test_dhcw_bf16_ragged_tiles(self, cuda_device, w_extent, c, o):
+        self._check(cuda_device, w_extent, c, o)
+
+    def test_design_rule(self, cuda_device):
+        bf, f32 = torch.bfloat16, torch.float32
+        assert tcc.design(bf, tcc.DHCW, 128, 96) == "tma_wgmma"
+        assert tcc.design(bf, tcc.DHCW, 16, 4) == "tma_wgmma"
+        assert tcc.design(bf, tcc.DHCW, 7, 48) == "plain"
+        assert tcc.design(f32, tcc.DHCW, 128, 48) == "plain"
+        assert tcc.design(bf, tcc.DHWC, 128, 48) == "halo_mma"
+        assert tcc.design(bf, tcc.DHWC, 16, 6) == "plain"
+        # W % 8 != 0 runs the plain kernel, and matches
+        x, w = _conv_inputs((2, 3, 4, 7), 48, 48, cuda_device)
+        x_cw = x.to(bf).transpose(-1, -2).contiguous()
+        before = dict(tcc.design_launches)
+        got = tcc.conv3x3x3_cw(x_cw, w, block_h=4)
+        torch.cuda.synchronize()
+        assert tcc.design_launches["plain"] == before["plain"] + 1
+        assert tcc.design_launches["tma_wgmma"] == before["tma_wgmma"]
+        torch.testing.assert_close(got.float(), tcc.conv3x3x3_cw_reference(x_cw, w).float(),
+                                   rtol=1.6e-2, atol=2e-2)
+
+
 # (M, K, N): a ragged row block with N % 16 == 8, a K tail of half a stage,
 # and one of the int8 probe's shapes
 TM_SHAPES = [(96, 48, 40), (64, 2080, 24), (16384, 2048, 512)]
+# bf16 only: M, N and K that are no multiple of the 128 × 256 × 64 tile
+TM_RAGGED = [(1000, 1024, 512), (300, 200, 264)]
 
 
 def _tm_inputs(kind, m, k, n, device, seed=0):
@@ -235,6 +289,24 @@ class TestTiledMatmulOnCard:
             else:
                 scale = (x.float().abs() + abs(s0)) @ w.float().abs() + abs(s0)
                 assert bool(((got - want).abs() <= 1e-4 * scale).all())
+
+    @pytest.mark.parametrize("perturb_out", [False, True])
+    @pytest.mark.parametrize("m,k,n", TM_RAGGED)
+    def test_bf16_ragged_tiles(self, cuda_device, m, k, n, perturb_out):
+        x, w = _tm_inputs("bf16", m, k, n, cuda_device, seed=1)
+        for s0 in (0.0, 3.7, -2.5):
+            s = torch.zeros(8, device=cuda_device)
+            s[0] = s0
+            got = ttm.tiled_matmul(s, x, w, out_dtype=torch.float32, perturb_out=perturb_out)
+            want = ttm.tiled_matmul_reference(s, x, w, out_dtype=torch.float32,
+                                              perturb_out=perturb_out)
+            torch.cuda.synchronize()
+            scale = (x.float().abs() + abs(s0)) @ w.float().abs() + abs(s0)
+            assert bool(((got - want).abs() <= 1e-4 * scale).all())
+
+    def test_designs(self, cuda_device):
+        assert ttm.design(torch.bfloat16) == "tma_wgmma"
+        assert ttm.design(torch.int8) == "mma_sync"
 
     def test_raises_on_misaligned_k(self, cuda_device):
         s = torch.zeros(8, device=cuda_device)

@@ -13,8 +13,9 @@
 //
 // What bounds it: operations. At (8, 128³, 48 → 48) bf16 the product is
 // 2.09 TFLOP (2.1 ms at the bf16 tensor rate) against 1.6 GB of traffic
-// (0.5 ms); with C = 4 (the first encoder block) it is bytes. Two designs,
-// chosen from the dtype, the layout and C (wgmma/TMA are later work):
+// (0.5 ms); with C = 4 (the first encoder block) it is bytes. Three designs,
+// chosen from the dtype, the layout and the shape only (`design_of`,
+// queried by `wft_conv3_design`):
 //
 // `conv3_halo_kernel` (bf16, DHWC, C % 4 == 0: every conv of the model): a
 // block of 8 warps owns one output plane × 8 h-rows × 32 w-columns (each warp
@@ -30,14 +31,43 @@
 // and rstd staged there once), before the stage is multiplied; cells outside
 // the volume stay zero, so the SAME halo stays zero after normalisation.
 //
-// `conv3_kernel` (fp32, the DHCW layout, C % 4 != 0): the first design, one
-// tap × 16 channels per chunk, 64 voxels per 4-warp block, loads through
-// registers with zero-fill past C; bf16 on mma.sync, fp32 as an FMA loop
-// (one row × NT·4 columns per thread).
+// `conv3_tma_kernel` (bf16, DHCW, W % 8 == 0, as TMA's 16-byte strides
+// need): an implicit GEMM with M = voxels, N = output channels, on wgmma.
+// A block owns one output plane × th h-rows × wt w-columns (wt = 16, 32 or
+// 64, the smallest ≥ W up to 64; th·wt = 512 voxels at BN ≤ 48, 256 at
+// BN = 96) × BN output channels
+// (16, 32, 48 or 96) and walks K in stages of (kd, 16 input channels). A
+// producer warp loads each stage with TMA into a ring of 2-4 stages tracked
+// by full/empty mbarriers, from 5-D maps over x as (W, C, H, D, B) (D and B
+// apart, so plane −1 of an instance is zero): the main box {wt, 16
+// channels, th + 2 rows} at W start w0, swizzled by wt·2 bytes, two halo
+// boxes {8, 16, th + 2} at w0 − 8 and w0 + wt, and the nine (kh, kw) taps'
+// weights of that (kd, chunk) from the per-tap packing. TMA's zero fill
+// outside the tensor gives the SAME padding in D, H and W and the zero
+// channels past C; nothing is padded in device memory. A box's W start must
+// be 16-byte aligned (a start of w0 − 1 + kw faulted on the H100), and a
+// wgmma descriptor's start is 16-byte aligned too, so the one-voxel kw
+// shift cannot come from shared-memory addresses: each consumer warp reads
+// its 16 voxels × 16 channels of a box row with ldmatrix.trans (the kw = 1
+// A fragment) plus the 8 voxels on either side, and makes the kw = 0 and
+// kw = 2 fragments with warp shuffles (lane g ∓ 1). Four consumer
+// warpgroups each own MT (2 at BN ≤ 48, else 1) M tiles of 64 voxels (64 /
+// wt rows at one stride) and issue, per (M tile, kh), three wgmma.m64nBNk16
+// with A in registers and B (n rows of 16 channels, K-major) from shared
+// memory, keeping the previous group in flight while they build the next;
+// the kernel is bound by that latency, not by the tensor rate or L2. The
+// accumulators hold all of K (no statistics on this path); the bf16 tile
+// is staged [n][voxel] in the ring and stored along W in 16-byte vectors.
+// Each stage reads (th + 2)·16·(wt + 16)·2 bytes of x from L2.
 //
-// Both: the tensor cores' fp32 sums are not rounded to nearest, so each
-// chunk goes into a fresh fragment that is added to an IEEE fp32 total
-// (the error does not grow with K). The fp32 tile goes through shared
+// `conv3_kernel` (fp32, and bf16 DHCW with W % 8 != 0 or DHWC with C % 4 !=
+// 0): the first design, one tap × 16 channels per chunk, 64 voxels per
+// 4-warp block, loads through registers with zero-fill past C; bf16 on
+// mma.sync, fp32 as an FMA loop (one row × NT·4 columns per thread).
+//
+// The mma.sync designs: the tensor cores' fp32 sums are not rounded to
+// nearest, so each chunk goes into a fresh fragment that is added to an IEEE
+// fp32 total (the error does not grow with K). The fp32 tile goes through shared
 // memory for the store and the statistics: each block writes its column
 // sums of acc and acc² (rows in order) to a scratch array, and a second
 // kernel adds the blocks of an instance in a fixed order, so two calls give
@@ -47,6 +77,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -60,7 +91,8 @@ enum Layout : int { kDHWC = 0, kDHCW = 1 };
 
 struct Params {
   const void* x;      // (B, D, H, W, C) or (B, D, H, C, W)
-  const void* w;      // (Opad, kstride), k = tap·C + c, zero-padded, input dtype
+  const void* w;      // (Opad, kstride), k = tap·C + c, zero-padded, input dtype;
+                      // the per-tap packing for the TMA kernel (wft_conv3)
   const float* mean;  // (B, C) prologue statistics, or null for no prologue
   const float* rstd;  // (B, C)
   void* y;            // (B, D, H, W, O) or (B, D, H, O, W)
@@ -541,12 +573,294 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
 }
 
-bool use_halo(int dtype, int layout, int C) {
-  return dtype == wft::kBFloat16 && layout == kDHWC && C % 4 == 0;
+// ---------------------------------------------------------------------------
+// bf16, DHCW, W % 8 == 0: TMA + wgmma (see the header).
+
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have
+
+// Consumer warpgroups per block and M tiles of 64 voxels per warpgroup (48
+// accumulators a thread either way): four warpgroups hide the latency of
+// building a fragment and of a product better than two with twice the tiles.
+template <int BN>
+__host__ __device__ constexpr int tma_wgs() {
+  return 4;
 }
 
+template <int BN>
+__host__ __device__ constexpr int tma_mt() {
+  return BN <= 48 ? 2 : 1;
+}
+
+// Threads of a block: the consumer warpgroups, then one producer warp.
+template <int BN>
+__host__ __device__ constexpr int tma_threads() {
+  return tma_wgs<BN>() * 128 + 32;
+}
+
+struct TmaTiles {
+  int wt;           // voxels of a box row (W tile): 16, 32 or 64
+  int th;           // output rows (h) per block: 64·WGS·MT / wt
+  int wblocks, hblocks, chunks;
+  int stages;       // ring depth
+  int main_bytes;   // the main box: (th + 2) rows × 16 channels × wt
+  int halo_bytes;   // one halo box: (th + 2) rows × 16 channels × 8
+  int stage_bytes;  // main box, two halo boxes, nine taps' weights; 1 KB multiple
+};
+
+// Byte offset `off` of an aligned box after TMA's swizzle of `span`-byte rows
+// (128, 64 or 32): 16-byte chunk bits [4, 4 + log2(span / 16)) ^= bits [7, …).
+__device__ __forceinline__ uint32_t swizzled(uint32_t off, uint32_t span) {
+  return off ^ (((off >> 7) & (span / 16 - 1)) << 4);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(tma_threads<BN>())
+    conv3_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap hmap,
+                     const __grid_constant__ CUtensorMap wmap, Params p, TmaTiles q) {
+  using bf16 = __nv_bfloat16;
+  constexpr int WGS = tma_wgs<BN>(), MT = tma_mt<BN>();
+  constexpr int kVox = WGS * MT * 64;  // output voxels per block
+  constexpr int kCS = kVox + 8;      // row stride of the staged output tile
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled boxes want 1024-byte aligned stages
+  uint8_t* smem = smem_raw + ((1024 - wft::smem_u32(smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + q.stages * q.stage_bytes);
+  uint64_t* empty = full + q.stages;
+  const int tid = threadIdx.x, wg = tid / 128;
+  int blk = blockIdx.x;
+  const int w0 = blk % q.wblocks * q.wt;
+  blk /= q.wblocks;
+  const int h0 = blk % q.hblocks * q.th;
+  blk /= q.hblocks;
+  const int d = blk % p.D, b = blk / p.D;
+  const int n0 = blockIdx.y * BN;
+  const int stages = 3 * q.chunks;  // (kd, 16-channel chunk)
+  if (tid == 0) {
+    for (int i = 0; i < q.stages; ++i) {
+      wft::mbar_init(full + i, 1);
+      wft::mbar_init(empty + i, WGS * 128);
+    }
+    wft::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == WGS) {  // the producer warp: one thread issues every copy
+    if (tid == WGS * 128) {
+      for (int s = 0; s < stages; ++s) {
+        const int slot = s % q.stages, kd = s / q.chunks, c0 = s % q.chunks * 16;
+        if (s >= q.stages) wft::mbar_wait(empty + slot, (s / q.stages - 1) & 1);
+        uint8_t* st = smem + slot * q.stage_bytes;
+        wft::mbar_arrive_expect_tx(full + slot,
+                                   q.main_bytes + 2 * q.halo_bytes + 9 * BN * 32);
+        // input rows h0 − 1 … h0 + th of plane d + kd − 1, channels c0 …;
+        // TMA fills zeros outside the volume and past C. W starts must be
+        // 16-byte aligned: the main box at w0, the halos at w0 − 8, w0 + wt
+        wft::tma_load_5d(st, &xmap, full + slot, w0, c0, h0 - 1, d + kd - 1, b);
+        wft::tma_load_5d(st + q.main_bytes, &hmap, full + slot, w0 - 8, c0, h0 - 1, d + kd - 1, b);
+        wft::tma_load_5d(st + q.main_bytes + q.halo_bytes, &hmap, full + slot, w0 + q.wt, c0,
+                         h0 - 1, d + kd - 1, b);
+        wft::tma_load_3d(st + q.main_bytes + 2 * q.halo_bytes, &wmap, full + slot, 0, n0,
+                         (c0 / 16 * 3 + kd) * 9);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: M tiles wg·MT …; warp `warp` owns voxels 16·warp …
+  // of each, i.e. box row r_o + kh at w offset wb for tap row kh
+  const int lt = tid % 128, warp = lt / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint32_t span = 2 * q.wt;
+  // ldmatrix lanes: matrix i = lane / 8, its row j = lane % 8 is channel
+  // j + 8·(i / 2) (main: voxels +8·(i % 2)) or j + 8·(i % 2) (halo: prev/next)
+  const int li = lane / 8, lj = lane % 8;
+  const int main_k = lj + 8 * (li / 2), main_v = 8 * (li % 2);
+  const int halo_k = lj + 8 * (li % 2);
+  const bool halo_next = li >= 2;
+  const int up = (lane + 28) & 31, down = (lane + 4) & 31;  // lanes of g − 1, g + 1
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+  // the three kw fragments of each kh: a set is rebuilt three groups after
+  // its last use, and one group stays in flight
+  uint32_t frag[3][3][4];
+
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % q.stages;
+    wft::mbar_wait(full + slot, (s / q.stages) & 1);
+    const uint8_t* main_p = smem + slot * q.stage_bytes;
+    const uint8_t* left_p = main_p + q.main_bytes;
+    const uint8_t* right_p = left_p + q.halo_bytes;
+    const uint32_t b_addr = wft::smem_u32(right_p + q.halo_bytes);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int vox = (wg * MT + mt) * 64 + warp * 16;
+      const int r_o = vox / q.wt, wb = vox % q.wt;
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        const int row = r_o + kh;
+        uint32_t a[4], h[4];
+        // kw = 1: voxels wb … wb + 15 (ldmatrix.trans: lane (g, t) gets
+        // voxel g, channels 2t, 2t + 1 of each 8 × 8 matrix)
+        wft::ldmatrix_x4_trans(
+            a, main_p + swizzled((row * 16 + main_k) * span + (wb + main_v) * 2, span));
+        // prev (wb − 8 …) and next (wb + 16 …) 8 voxels, from the halo boxes
+        // at the W tile's ends
+        const uint8_t* ha;
+        if (!halo_next) {
+          ha = wb == 0 ? left_p + (row * 16 + halo_k) * 16
+                       : main_p + swizzled((row * 16 + halo_k) * span + (wb - 8) * 2, span);
+        } else {
+          ha = wb + 16 == q.wt
+                   ? right_p + (row * 16 + halo_k) * 16
+                   : main_p + swizzled((row * 16 + halo_k) * span + (wb + 16) * 2, span);
+        }
+        wft::ldmatrix_x4_trans(h, ha);
+        uint32_t(&f)[3][4] = frag[kh];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[1][i] = a[i];
+        // kw = 0: voxel m − 1, from lane g − 1 (g = 0: the previous 8 voxels' last)
+        const uint32_t u0 = __shfl_sync(0xffffffffu, a[0], up);
+        const uint32_t u1 = __shfl_sync(0xffffffffu, a[1], up);
+        const uint32_t u2 = __shfl_sync(0xffffffffu, a[2], up);
+        const uint32_t u3 = __shfl_sync(0xffffffffu, a[3], up);
+        const uint32_t p0 = __shfl_sync(0xffffffffu, h[0], up);
+        const uint32_t p1 = __shfl_sync(0xffffffffu, h[1], up);
+        f[0][0] = g ? u0 : p0;
+        f[0][1] = g ? u1 : u0;
+        f[0][2] = g ? u2 : p1;
+        f[0][3] = g ? u3 : u2;
+        // kw = 2: voxel m + 1, from lane g + 1 (g = 7: the next 8 voxels' first)
+        const uint32_t v0 = __shfl_sync(0xffffffffu, a[0], down);
+        const uint32_t v1 = __shfl_sync(0xffffffffu, a[1], down);
+        const uint32_t v2 = __shfl_sync(0xffffffffu, a[2], down);
+        const uint32_t v3 = __shfl_sync(0xffffffffu, a[3], down);
+        const uint32_t n0v = __shfl_sync(0xffffffffu, h[2], down);
+        const uint32_t n1v = __shfl_sync(0xffffffffu, h[3], down);
+        f[2][0] = g < 7 ? v0 : v1;
+        f[2][1] = g < 7 ? v1 : n0v;
+        f[2][2] = g < 7 ? v2 : v3;
+        f[2][3] = g < 7 ? v3 : n1v;
+        wft::wgmma_fence();
+        wft::fence_regs(acc[mt]);
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          // B: tap (kh, kw)'s weights, K-major (n rows of 16 channels, 32-byte swizzle)
+          const uint64_t db = wft::wgmma_desc(b_addr + (kh * 3 + kw) * BN * 32, 16, 256,
+                                              wft::kSwizzle32);
+          wft::WgmmaRS<BN>::template run<0>(acc[mt], f[kw], db, 1);
+        }
+        wft::wgmma_commit();
+        wft::fence_regs(acc[mt]);
+        // the group before this one is done: its fragment set is free, and
+        // after a stage's first group the previous stage's weights are too
+        wft::wgmma_wait<1>();
+        if (s > 0 && mt == 0 && kh == 0) wft::mbar_arrive(empty + (s - 1) % q.stages);
+      }
+    }
+  }
+  wft::wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) wft::fence_regs(acc[mt]);
+
+  // the bf16 tile, [n][voxel], in the ring once every warpgroup is done
+  wft::named_bar_sync(1, WGS * 128);
+  bf16* cs = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int v = (wg * MT + mt) * 64 + warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = 8 * j + 2 * t;
+      cs[n * kCS + v] = __float2bfloat16(acc[mt][4 * j]);
+      cs[(n + 1) * kCS + v] = __float2bfloat16(acc[mt][4 * j + 1]);
+      cs[n * kCS + v + 8] = __float2bfloat16(acc[mt][4 * j + 2]);
+      cs[(n + 1) * kCS + v + 8] = __float2bfloat16(acc[mt][4 * j + 3]);
+    }
+  }
+  wft::named_bar_sync(1, WGS * 128);
+  // 16-byte stores along W: voxel v = r·wt + w of the block is (h0 + r, w0 + w)
+  bf16* y = static_cast<bf16*>(p.y);
+  const int vecs = q.wt / 8;
+  for (int e = tid; e < BN * q.th * vecs; e += WGS * 128) {
+    const int c8 = e % vecs, r = e / vecs % q.th, n = e / (vecs * q.th);
+    const int h = h0 + r, w = w0 + 8 * c8;
+    if (n0 + n >= p.O || h >= p.H || w >= p.W) continue;
+    *reinterpret_cast<uint4*>(y + ((((long long)b * p.D + d) * p.H + h) * p.O + n0 + n) * p.W + w) =
+        *reinterpret_cast<const uint4*>(cs + n * kCS + r * q.wt + 8 * c8);
+  }
+}
+
+template <int BN>
+cudaError_t launch_tma_bn(const Params& p, cudaStream_t stream) {
+  TmaTiles q;
+  q.wt = p.W <= 16 ? 16 : p.W <= 32 ? 32 : 64;
+  q.th = tma_wgs<BN>() * tma_mt<BN>() * 64 / q.wt;
+  q.wblocks = (p.W + q.wt - 1) / q.wt;
+  q.hblocks = (p.H + q.th - 1) / q.th;
+  q.chunks = (p.C + 15) / 16;
+  q.main_bytes = (q.th + 2) * 16 * q.wt * 2;
+  q.halo_bytes = (q.th + 2) * 16 * 8 * 2;
+  q.stage_bytes = (q.main_bytes + 2 * q.halo_bytes + 9 * BN * 32 + 1023) / 1024 * 1024;
+  q.stages = (kSmemMax - 1024 - 4 * 16) / q.stage_bytes;
+  if (q.stages > 4) q.stages = 4;
+  if (q.stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)q.stages * q.stage_bytes + q.stages * 16 + 1024;
+  // x as (W, C, H, D, B): D and B apart, so plane −1 of an instance is zero
+  CUtensorMap xmap, hmap, wmap;
+  const uint64_t row = (uint64_t)p.W * 2;
+  const uint64_t xdims[5] = {(uint64_t)p.W, (uint64_t)p.C, (uint64_t)p.H, (uint64_t)p.D,
+                             (uint64_t)p.B};
+  const uint64_t xstr[4] = {row, row * p.C, row * p.C * p.H, row * p.C * p.H * p.D};
+  const uint32_t xbox[5] = {(uint32_t)q.wt, 16, (uint32_t)q.th + 2, 1, 1};
+  cudaError_t err =
+      wft::make_map_bf16(&xmap, p.x, 5, xdims, xstr, xbox, wft::swizzle_for(2 * q.wt));
+  if (err != cudaSuccess) return err;
+  const uint32_t hbox[5] = {8, 16, (uint32_t)q.th + 2, 1, 1};  // 16-byte rows, unswizzled
+  err = wft::make_map_bf16(&hmap, p.x, 5, xdims, xstr, hbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  // weights as (16 channels, O, 27·chunks taps) of the per-tap packing
+  const uint64_t wdims[3] = {16, (uint64_t)p.O, (uint64_t)27 * q.chunks};
+  const uint64_t wstr[2] = {32, (uint64_t)p.O * 32};
+  const uint32_t wbox[3] = {16, BN, 9};
+  err = wft::make_map_bf16(&wmap, p.w, 3, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3_tma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)p.B * p.D * q.hblocks * q.wblocks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)blocks, (p.O + BN - 1) / BN);
+  conv3_tma_kernel<BN><<<grid, tma_threads<BN>(), smem, stream>>>(xmap, hmap, wmap, p, q);
+  return cudaGetLastError();
+}
+
+// Output channels per block: the narrowest wgmma width that covers O ≤ 48,
+// else 96 (192 → 2 × 96).
+cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
+  if (p.O <= 16) return launch_tma_bn<16>(p, stream);
+  if (p.O <= 32) return launch_tma_bn<32>(p, stream);
+  if (p.O <= 48) return launch_tma_bn<48>(p, stream);
+  return launch_tma_bn<96>(p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Dispatch: depends on the dtype, the layout and the shape only.
+
+enum Design : int { kHaloMma = 0, kPlain = 1, kTmaWgmma = 2 };
+
+int design_of(int dtype, int layout, int W, int C) {
+  if (dtype == wft::kBFloat16 && layout == kDHWC && C % 4 == 0) return kHaloMma;
+  if (dtype == wft::kBFloat16 && layout == kDHCW && W % 8 == 0) return kTmaWgmma;
+  return kPlain;
+}
+
+
 long long tiles_of(int dtype, int layout, int D, int H, int W, int C) {
-  if (use_halo(dtype, layout, C)) {
+  if (design_of(dtype, layout, W, C) == kHaloMma) {
     return (long long)D * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
   }
   return ((long long)D * H * W + kBM - 1) / kBM;
@@ -554,15 +868,24 @@ long long tiles_of(int dtype, int layout, int D, int H, int W, int C) {
 
 }  // namespace
 
-// Blocks per instance along the volume for these arguments: the scratch
-// `partial` of wft_conv3 holds B·2·O·tiles floats.
+// Blocks per instance along the volume for these arguments (DHWC, where the
+// statistics are): the scratch `partial` of wft_conv3 holds B·2·O·tiles floats.
 extern "C" long long wft_conv3_tiles(int dtype, int layout, int D, int H, int W, int C) {
   return tiles_of(dtype, layout, D, H, W, C);
 }
 
-// Returns a cudaError_t (0 on success). `w` is (ceil(O / 64)·64, K8) in the
-// input dtype, K8 = 27·C rounded up to 8, row n holding output channel n's
-// taps at k = tap·C + c (tap = (kd·3 + kh)·3 + kw), zero elsewhere.
+// The design wft_conv3 launches for these arguments: 0 = the halo-tile
+// mma.sync kernel, 1 = the plain kernel, 2 = the TMA + wgmma kernel.
+extern "C" int wft_conv3_design(int dtype, int layout, int W, int C) {
+  return design_of(dtype, layout, W, C);
+}
+
+// Returns a cudaError_t (0 on success). For designs 0 and 1, `w` is
+// (ceil(O / 64)·64, K8) in the input dtype, K8 = 27·C rounded up to 8, row n
+// holding output channel n's taps at k = tap·C + c (tap = (kd·3 + kh)·3 +
+// kw), zero elsewhere. For design 2, `w` is the per-tap packing
+// (ceil(C / 16), 3, 9, O, 16) bf16: [chunk, kd, kh·3 + kw, n, c − 16·chunk],
+// zero past C.
 // `mean`/`rstd` (B, C) fp32 turn the prologue on (DHWC only); `partial`
 // (B·2·O·tiles) and `stats` (B, 2, O) fp32 turn the statistics on (DHWC
 // only). All pointers must be 16-byte aligned.
@@ -584,8 +907,11 @@ extern "C" int wft_conv3(int dtype, int layout, const void* x, const void* w,
            (27 * C + 7) / 8 * 8};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (use_halo(dtype, layout, C)) {
+  const int design = design_of(dtype, layout, W, C);
+  if (design == kHaloMma) {
     err = C % 8 == 0 ? launch_halo<8>(p, s) : launch_halo<4>(p, s);
+  } else if (design == kTmaWgmma) {
+    err = launch_tma(p, s);
   } else if (dtype == wft::kFloat32) {
     err = layout == kDHWC ? launch<float, kDHWC>(p, s) : launch<float, kDHCW>(p, s);
   } else if (dtype == wft::kBFloat16) {

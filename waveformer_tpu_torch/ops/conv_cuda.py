@@ -18,7 +18,11 @@ not depend on it.
 
 On CPU tensors every wrapper runs `conv3x3x3_reference`; on CUDA tensors it
 launches the kernel or raises (fp32 with TF32 off is an FMA loop, bf16 runs
-on tensor cores).
+on tensor cores). Which of the kernel's designs runs depends on the dtype,
+the layout and the shape only (`design`): bf16 channels-last on the
+halo-tile `mma.sync` kernel, bf16 (D, H, C, W) with W % 8 == 0 on the TMA +
+`wgmma` kernel (weights in the `pack_taps` order), the rest on the plain
+kernel. `design_launches` counts the launches of each.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ DHWC, DHCW = 0, 1
 # per-entry-point launch counters, read by chip_smoke.py
 launches = {"conv3x3x3_same": 0, "conv3x3x3_batched": 0, "conv3x3x3_cw": 0,
             "conv3x3x3_same_v2": 0}
+# the kernel's designs, by the number `wft_conv3_design` returns, and the
+# launches of each (every launch of csrc/conv3.cu, the fused conv's included)
+DESIGNS = ("halo_mma", "plain", "tma_wgmma")
+design_launches = {name: 0 for name in DESIGNS}
 
 
 def conv3x3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -48,6 +56,26 @@ def conv3x3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = F.conv3d(xb.permute(0, 4, 1, 2, 3), wt, padding=1).permute(0, 2, 3, 4, 1)
     y = y.contiguous()
     return y[0] if single else y
+
+
+def pack_taps(w: torch.Tensor) -> torch.Tensor:
+    """Weights (3, 3, 3, C, O) in the TMA kernel's per-tap order: (ceil(C /
+    16), 3, 9, O, 16), element [chunk, kd, kh·3 + kw, o, c − 16·chunk], zero
+    for channels past C, so a 16-channel box never reads another tap."""
+    c, o = w.shape[3], w.shape[4]
+    chunks = -(-c // 16)
+    wp = torch.zeros((27, chunks * 16, o), dtype=w.dtype, device=w.device)
+    wp[:, :c] = w.reshape(27, c, o)
+    return wp.reshape(3, 9, chunks, 16, o).permute(2, 0, 1, 4, 3).contiguous()
+
+
+def design(dtype: torch.dtype, layout: int, w_extent: int, c: int) -> str:
+    """The design `csrc/conv3.cu` launches for these arguments (its
+    `wft_conv3_design`); needs the built library."""
+    fn = _build.LIBRARIES.get("conv3").wft_conv3_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    return DESIGNS[fn(_DTYPES[dtype], layout, w_extent, c)]
 
 
 def _check_block_h(h: int, block_h: int) -> None:
@@ -66,7 +94,8 @@ def launch(
     """Launch `csrc/conv3.cu` on 5-D CUDA `x` ((B, D, H, W, C) for DHWC,
     (B, D, H, C, W) for DHCW) and return (y, stats or None). `prologue` is
     (mean, rstd), each (B, C); stats are (B, 2, O) fp32 [Σ, Σ²] of the fp32
-    accumulator. Counts nothing: each public wrapper counts its own calls."""
+    accumulator. Counts the launch in `design_launches`; each public wrapper
+    counts its own calls in `launches`."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv3 kernel takes fp32/bf16, got {x.dtype}")
     if not (x.is_cuda and w.is_cuda):
@@ -81,9 +110,12 @@ def launch(
         raise ValueError(f"conv3: weights {tuple(w.shape)} != (3, 3, 3, {c}, O)")
     o = w.shape[-1]
     x = _build.aligned16(x)
-    # (O rounded up to 64, 27·C rounded up to 8), k = tap·C + c, zero-padded
-    wk = torch.zeros((-(-o // 64) * 64, -(-27 * c // 8) * 8), dtype=x.dtype, device=x.device)
-    wk[:o, : 27 * c] = w.permute(4, 0, 1, 2, 3).reshape(o, 27 * c)
+    name = design(x.dtype, layout, wd, c)
+    if name == "tma_wgmma":
+        wk = pack_taps(w.to(x.dtype))
+    else:  # (O rounded up to 64, 27·C rounded up to 8), k = tap·C + c, zero-padded
+        wk = torch.zeros((-(-o // 64) * 64, -(-27 * c // 8) * 8), dtype=x.dtype, device=x.device)
+        wk[:o, : 27 * c] = w.permute(4, 0, 1, 2, 3).reshape(o, 27 * c)
     out_shape = (b, d, h, wd, o) if layout == DHWC else (b, d, h, o, wd)
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     mean = rstd = partial = stats = None
@@ -111,7 +143,8 @@ def launch(
         int(act), y.data_ptr(), ptr(partial), ptr(stats), b, d, h, wd, c, o,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "conv3 launch")
+    _build.check(err, f"conv3 launch ({name})")
+    design_launches[name] += 1
     return y, stats
 
 

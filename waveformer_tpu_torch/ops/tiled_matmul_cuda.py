@@ -2,7 +2,8 @@
 
 Port of `tools/exp_int8_mxu.py::make`, the Pallas product of the int8
 probe. The kernel is `csrc/tiled_matmul.cu` (see its header for the
-design). For x (M, K), w (K, N) and s (8,) fp32:
+designs: bf16 on TMA + `wgmma`, int8 on `mma.sync`). For x (M, K), w (K, N)
+and s (8,) fp32:
 
     bf16 → fp32,  perturb_out=False: out = (x ⊕ bf16(s[0])) @ w   (the probe's bf16 run)
     bf16 → fp32,  perturb_out=True:  out = x @ w + s[0]
@@ -30,6 +31,17 @@ PAIRS = {torch.bfloat16: ("tiled_matmul_bf16", torch.float32),
 
 # per-launch counters, read by chip_smoke.py to prove the probe ran here
 launches = {"tiled_matmul_bf16": 0, "tiled_matmul_int8": 0}
+# the kernel's designs, by the number `wft_tiled_matmul_design` returns
+DESIGNS = ("tma_wgmma", "mma_sync")
+
+
+def design(dtype: torch.dtype) -> str:
+    """The design `csrc/tiled_matmul.cu` launches for this input type (bf16 on
+    TMA + `wgmma`, int8 on `mma.sync`); needs the built library."""
+    fn = _build.LIBRARIES.get("tiled_matmul").wft_tiled_matmul_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return DESIGNS[fn(int(dtype == torch.int8))]
 
 
 def supported(k: int, n: int, dtype: torch.dtype) -> bool:

@@ -1,0 +1,170 @@
+"""Time design variants of a hand-written kernel against the committed source.
+
+    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3] [--iters 32]
+
+A variant is the committed `csrc/<kernel>.cu` with a few text substitutions
+(tile sizes, ring depth, blocks per SM), listed in `VARIANTS`. Each is built
+with the port's nvcc flags into `_build/variants/`, then swapped in for the
+committed library, so the public wrappers run it unchanged: every variant
+is first held against the plain version, then timed with CUDA events at the
+shapes of its path, in turns (the variants in order, then in reverse). One
+JSON line per (variant, shape, pass), with the card's name. CUDA only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+from typing import Dict, List, Tuple
+
+import torch
+
+from waveformer_tpu_torch.ops import _build
+from waveformer_tpu_torch.ops import conv_cuda
+from waveformer_tpu_torch.ops import tiled_matmul_cuda as tm
+from waveformer_tpu_torch.utils.profiling import device_time
+
+# name → substitutions (old, new) on the committed source; the first is it
+VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
+    "tiled_matmul": {
+        "persistent, 128x256, 4 stages (committed)": [],
+        "one block per tile": [
+            ("const int grid = (int)(tiles < sms ? tiles : sms);", "const int grid = (int)tiles;")],
+        "persistent, 3 stages": [("kWgStages = 4;", "kWgStages = 3;")],
+    },
+    "conv3": {
+        "4 warpgroups (committed)": [],
+        "2 warpgroups, twice the M tiles (the first wgmma design)": [
+            ("constexpr int tma_wgs() {\n  return 4;", "constexpr int tma_wgs() {\n  return 2;"),
+            ("constexpr int tma_mt() {\n  return BN <= 48 ? 2 : 1;",
+             "constexpr int tma_mt() {\n  return BN <= 48 ? 4 : 2;")],
+        "6 warpgroups × 1 M tile at BN ≤ 48": [
+            ("constexpr int tma_wgs() {\n  return 4;",
+             "constexpr int tma_wgs() {\n  return BN <= 48 ? 6 : 4;"),
+            ("constexpr int tma_mt() {\n  return BN <= 48 ? 2 : 1;",
+             "constexpr int tma_mt() {\n  return 1;")],
+        "ring of 2 stages": [("if (q.stages > 4) q.stages = 4;", "if (q.stages > 2) q.stages = 2;")],
+        "two groups in flight": [
+            ("wft::wgmma_wait<1>();\n        if (s > 0 && mt == 0 && kh == 0)",
+             "wft::wgmma_wait<2>();\n        if (s > 0 && mt == 0 && kh == 1)")],
+    },
+}
+# (M, K, N) of the int8 probe; (B, (D, H, W), C, O) of the flagship's DHCW convs
+MM_SHAPES = [(32768, 1024, 512), (16384, 2048, 512)]
+CONV_SHAPES = [(8, (128,) * 3, 4, 48), (8, (128,) * 3, 96, 48), (8, (64,) * 3, 96, 48),
+               (8, (32,) * 3, 192, 96), (8, (16,) * 3, 384, 192)]
+
+
+def build(kernel: str, name: str, subs: List[Tuple[str, str]]) -> ctypes.CDLL:
+    """Compile the committed source with `subs` applied; raise if one does not apply."""
+    src = open(os.path.join(_build.CSRC, f"{kernel}.cu")).read()
+    for old, new in subs:
+        if old not in src:
+            raise ValueError(f"variant {name!r}: {old!r} is not in {kernel}.cu")
+        src = src.replace(old, new)
+    tag = "".join(c if c.isalnum() else "_" for c in name)[:48]
+    out_dir = os.path.join(_build.BUILD_DIR, "variants", kernel, tag)
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(_build.CSRC):
+        if f.endswith(".cuh"):
+            shutil.copy(os.path.join(_build.CSRC, f), out_dir)
+    cu = os.path.join(out_dir, f"{kernel}.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    lib = os.path.join(out_dir, f"{kernel}.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, cu], check=True,
+                   capture_output=True, text=True)
+    return ctypes.CDLL(lib)
+
+
+def _mm_cases(iters: int):
+    for m, k, n in MM_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(k, n, device="cuda", generator=g).to(torch.bfloat16)
+        s = torch.zeros(8, device="cuda")
+
+        def check(x=x, w=w, s=s):
+            got = tm.tiled_matmul(s, x, w, out_dtype=torch.float32, perturb_out=False)
+            want = tm.tiled_matmul_reference(s, x, w, out_dtype=torch.float32,
+                                             perturb_out=False)
+            scale = x.float().abs() @ w.float().abs()
+            return bool(((got - want).abs() <= 1e-4 * scale).all())
+
+        def time_it(x=x, w=w):
+            return device_time(lambda s: tm.tiled_matmul(
+                s, x, w, out_dtype=torch.float32, perturb_out=False), s, iters=iters) * 1e6
+
+        lib_us = device_time(lambda s: torch.mm(x, w, out_dtype=torch.float32), s,
+                             iters=iters) * 1e6
+        yield [m, k, n], check, time_it, {"unit": "us", "library": lib_us}
+
+
+def _conv_cases(iters: int):
+    for b, dhw, c, o in CONV_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(b, *dhw, c, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(3, 3, 3, c, o, device="cuda", generator=g) * (27 * c) ** -0.5
+        x_cw = x.transpose(-1, -2).contiguous()
+        del x
+
+        def check(x_cw=x_cw, w=w):
+            got = conv_cuda.conv3x3x3_cw(x_cw, w, block_h=1).float()
+            want = conv_cuda.conv3x3x3_cw_reference(x_cw, w).float()
+            return bool(((got - want).abs() <= 2e-2 + 1.6e-2 * want.abs()).all())
+
+        def time_it(x_cw=x_cw, w=w):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            conv_cuda.conv3x3x3_cw(x_cw, w, block_h=1)
+            start.record()
+            for _ in range(iters):
+                conv_cuda.conv3x3x3_cw(x_cw, w, block_h=1)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+
+        yield [b, *dhw, c, o], check, time_it, {"unit": "ms"}
+
+
+def run(kernel: str, iters: int) -> List[dict]:
+    names = list(VARIANTS[kernel])
+    libs = {n: build(kernel, n, VARIANTS[kernel][n]) for n in names}
+    committed = _build.LIBRARIES.get(kernel)
+    card = torch.cuda.get_device_name(0)
+    rows = []
+    cases = _mm_cases(iters) if kernel == "tiled_matmul" else _conv_cases(max(iters // 8, 3))
+    try:
+        for shape, check, time_it, extra in cases:
+            for n in names:
+                _build.LIBRARIES._libs[kernel] = libs[n]
+                if not check():
+                    raise RuntimeError(f"variant {n!r} disagrees with the plain version at {shape}")
+            for pass_, order in enumerate((names, names[::-1])):
+                for n in order:
+                    _build.LIBRARIES._libs[kernel] = libs[n]
+                    row = {"kernel": kernel, "variant": n, "shape": shape, "pass": pass_,
+                           "time": time_it(), **extra, "device": card}
+                    print(json.dumps(row), flush=True)
+                    rows.append(row)
+            torch.cuda.empty_cache()
+    finally:
+        _build.LIBRARIES._libs[kernel] = committed
+    return rows
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(VARIANTS), default="tiled_matmul")
+    ap.add_argument("--iters", type=int, default=32)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("design_variants: needs a CUDA device")
+    run(args.kernel, args.iters)
+
+
+if __name__ == "__main__":
+    main()
