@@ -10,11 +10,16 @@ Phases, each of which must pass:
      shapes, in fp32 (TF32 off) and bf16, with its time beside the plain
      version's, a PyTorch library call's and the card's bound;
   4. the flagship model on the card (kernels, fp32) against the same
-     weights on the CPU (plain versions), batch 1 at 128³;
+     weights on the CPU (plain versions), batch 1 at 128³; then two more of
+     the repository's configurations the same way, in the models' default
+     channels-last layout: the abdomen CT network at 96³ (6³ = 216-token
+     windows) and the 32³ example network (2³ = 8-token windows, head dims 4
+     and 8), each with exact window-attention launch counts per design;
   5. the main path, as `bench.py` drives the JAX package: flagship bf16
      WaveFormer → 8-way patch-TTA sliding window (roi 128³, sw_batch 8,
      overlap 0.5) → `Predictor.predict_case` / `predict_cases` on synthetic
-     (4, 150, 180, 145) cases; kernel launches are counted over the run;
+     (4, 150, 180, 145) cases; kernel launches are counted over the run
+     (window attention also per design: all on TMA + wgmma);
   6. the dense 3³ conv kernel (`csrc/conv3.cu`) in its three forms (DHWC,
      DHCW, fused with the InstanceNorm prologue and statistics; bf16 DHCW on
      the TMA + wgmma design, the others on mma.sync) against its
@@ -59,12 +64,33 @@ STREAM_CASES = 3
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# exp2 on the special-function units: 132 SMs × 16 a clock at ≈1.83 GHz (the
+# figure the FlashAttention-3 paper gives for the H100 SXM5)
+EXP2_PER_S = 3.9e12
+# device clocks of sleep queued ahead of each timed call (≈0.6 ms at the
+# H100's clock): more than the host needs to launch any call timed here
+SLEEP_CYCLES_PER_CALL = 1_000_000
 
 ATTN_MAIN_SHAPES = [  # (B·nW, H, N, D) of the 14 calls of a batch-8 forward
     (512, 3, 512, 16), (64, 3, 512, 16), (8, 3, 512, 16),
     (64, 6, 512, 16), (8, 6, 512, 16), (8, 12, 512, 16), (8, 24, 512, 16),
 ]
-ATTN_TEST_SHAPES = [(4, 3, 512, 16), (2, 24, 512, 16), (3, 2, 128, 8)]
+# the JAX tests' shapes, then ragged windows: the abdomen config's 6³, the 32³
+# networks' 2³ (head dim 4), a 3³
+ATTN_TEST_SHAPES = [(4, 3, 512, 16), (2, 24, 512, 16), (3, 2, 128, 8),
+                    (4, 3, 216, 16), (16, 2, 8, 4), (2, 3, 27, 16)]
+# two more of the repository's configurations, driven card against CPU:
+# examples/abdomen_ct/config.yaml:31-44 and examples/brats2023/run_example.py:107-119
+EXTRA_CONFIGS = {
+    "abdomen_ct_96": dict(img_size=(96, 96, 96), patch_size=2, in_chans=1, out_chans=14,
+                          embed_dims=(48, 96, 192, 384), depths=(2, 2, 2, 2),
+                          num_heads=(3, 6, 12, 24), decom_levels=(3, 2, 1, 0),
+                          multi_scale_attention=True, drop_path_rate=0.1),
+    "example_32": dict(img_size=(32, 32, 32), patch_size=2, in_chans=4, out_chans=4,
+                       embed_dims=(8, 16, 32, 64), depths=(1, 1, 1, 1),
+                       num_heads=(2, 4, 8, 8), decom_levels=(3, 2, 1, 0),
+                       multi_scale_attention=True, drop_path_rate=0.0),
+}
 DW_MAIN_SHAPES = [  # (B, D, H, W, C) of the 10 depthwise convs of a forward
     (8, 64, 64, 64, 192), (8, 32, 32, 32, 384), (8, 16, 16, 16, 768),
     (8, 8, 8, 8, 1536), (8, 64, 64, 64, 96),
@@ -122,17 +148,34 @@ def card_line():
 
 
 def cuda_ms(fn, iters=20, warmup=3):
+    """Device ms per call of `fn`: CUDA events around `iters` calls that are
+    queued behind a device-side sleep, so that a call shorter than its host
+    launch work is timed on the device, not at the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=20):
+    """Host µs to launch one call of `fn` (no device wait inside)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def within(got, want, dtype_name):
@@ -161,19 +204,28 @@ def check_attention(ac):
             good, err = within(got, want, name)
             ok &= good
             row[f"max_err_{name}"] = err
+        qq, kk, vv = (t.to(torch.bfloat16) for t in (q, k, v))
+        row["design_bf16"] = ac.design(torch.bfloat16, n, d)
         if shape in ATTN_MAIN_SHAPES:
-            qq, kk, vv = (t.to(torch.bfloat16) for t in (q, k, v))
             mask = bias.to(torch.bfloat16)[None]
             row["kernel_ms"] = cuda_ms(lambda: ac.window_attention(qq, kk, vv, bias, scale))
+            row["kernel_host_us"] = host_us(lambda: ac.window_attention(qq, kk, vv, bias, scale))
             row["plain_ms"] = cuda_ms(
                 lambda: ac.window_attention_reference(qq, kk, vv, bias, scale), iters=5)
             row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qq, kk, vv, attn_mask=mask, scale=scale))
-            nbytes = 4 * bw * h * n * d * 2 + h * n * n * 4
-            flops = 4 * bw * h * n * n * d
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
-            row["bound_ms"] = max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            # the least time: bytes (q/k/v/out bf16, bias fp32), the two products
+            # at the tensor rate, or one exp2 per score on the special-function units
+            times = {
+                "bytes": (4 * bw * h * n * d * 2 + h * n * n * 4) / HBM_BYTES_PER_S * 1e3,
+                "operations": 4 * bw * h * n * n * d / BF16_TENSOR_FLOPS * 1e3,
+                "exponentials": bw * h * n * n / EXP2_PER_S * 1e3,
+            }
+            row["bound_by"] = max(times, key=times.get)
+            row["bound_ms"] = times[row["bound_by"]]
+            row["bound_parts_ms"] = times
+        else:  # the ragged windows' time, beside nothing
+            row["ragged_ms_bf16"] = cuda_ms(lambda: ac.window_attention(qq, kk, vv, bias, scale))
         log(json.dumps(row))
         rows.append(row)
     return ok, rows
@@ -217,7 +269,7 @@ def check_dwconv(dc):
 
 
 def check_flagship_vs_cpu(create_waveformer, Config, ac, dc):
-    kw = Config().network.model_kwargs()
+    kw = dict(Config().network.model_kwargs(), io_layout="channels_first")
     cpu = create_waveformer(kw, device="cpu", seed=SEED)
     gpu = create_waveformer(kw, device="cuda")
     gpu.load_state_dict(cpu.state_dict(), strict=True)
@@ -241,8 +293,58 @@ def check_flagship_vs_cpu(create_waveformer, Config, ac, dc):
     return ok
 
 
+def count_attention_calls(model, x):
+    """Window-attention calls of one forward of `model` on `x`, counted by
+    hooks on its `WindowAttention` modules (each module call is one call of
+    the kernel wrapper)."""
+    from waveformer_tpu_torch.models.attention import WindowAttention
+
+    calls = []
+    handles = [m.register_forward_hook(lambda *a: calls.append(1))
+               for m in model.modules() if isinstance(m, WindowAttention)]
+    with torch.inference_mode():
+        out = model(x)
+    for h in handles:
+        h.remove()
+    return out, len(calls)
+
+
+def check_configs_vs_cpu(create_waveformer, ac):
+    """Phase 4, second half: the abdomen and 32³ configurations, batch 1,
+    fp32, default (channels-last) layout, card against CPU within the
+    flagship's rule, with exact attention launch counts per design."""
+    ok, rows = True, []
+    for name, cfg in EXTRA_CONFIGS.items():
+        cpu = create_waveformer(cfg, device="cpu", seed=SEED)
+        gpu = create_waveformer(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        shape = (1, *cfg["img_size"], cfg["in_chans"])
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(shape).astype(np.float32))
+        want, calls = count_attention_calls(cpu, x)
+        before = dict(ac.design_launches)
+        with torch.inference_mode():
+            got = gpu(x.cuda()).cpu()
+        designs = {k: ac.design_launches[k] - before[k] for k in before}
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        good = (bool(torch.isfinite(got).all()) and got.shape == want.shape
+                and diff <= 2e-3 * max(1.0, scale)
+                and designs == {"fma": calls, "tma_wgmma": 0} and calls > 0)
+        ok &= good
+        row = {"check": f"{name}_card_vs_cpu_fp32", "logits_shape": list(got.shape),
+               "max_abs_logit_diff": diff, "max_abs_logit": scale,
+               "attention_calls": calls, "attention_launches_by_design": designs, "ok": good}
+        log(json.dumps(row))
+        rows.append(row)
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    return ok, rows
+
+
 def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac, dc):
-    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=SEED)
+    # the bench protocol: (C, D, H, W) cases, channels-first model and inferer
+    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=SEED,
+                              io_layout="channels_first")
     inferer = SlidingWindowInferer(
         roi_size=(128, 128, 128), sw_batch_size=8, overlap=0.5,
         mirror_axes=(0, 1, 2), tta_mode="patch", layout="channels_first",
@@ -261,11 +363,15 @@ def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac
     torch.cuda.reset_peak_memory_stats()
 
     ac.launches = dc.launches = 0
+    for k in ac.design_launches:
+        ac.design_launches[k] = 0
     t0 = time.time()
     seg = predictor.predict_case(cases[1], model, out_channels=4)
     s_case = time.time() - t0
     case_counts = (ac.launches, dc.launches)
+    case_designs = dict(ac.design_launches)
     ok &= check_seg(seg) and case_counts == (112, 80)
+    ok &= case_designs == {"fma": 0, "tma_wgmma": 112}
 
     ac.launches = dc.launches = 0
     t0 = time.time()
@@ -281,6 +387,7 @@ def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "per_case_launches": {"window_attention": case_counts[0],
                                  "dwconv3": case_counts[1]},
+           "per_case_attention_designs": case_designs,
            "stream_launches": {"window_attention": stream_counts[0],
                                "dwconv3": stream_counts[1]},
            "label_counts": np.bincount(seg.ravel(), minlength=4).tolist()}
@@ -425,7 +532,8 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
     from waveformer_tpu_torch.models.conv_blocks import UnetResBlock
     from waveformer_tpu_torch.models.layers import CCF_FFN
 
-    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=SEED)
+    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=SEED,
+                              io_layout="channels_first")
     captured = []
     handles = [
         m.register_forward_hook(lambda mod, args, out, name=name: captured.append(
@@ -628,6 +736,9 @@ def main():
             failed.append(name)
     if not check_flagship_vs_cpu(create_waveformer, Config, ac, dc):
         failed.append("flagship_card_vs_cpu")
+    ok, _ = check_configs_vs_cpu(create_waveformer, ac)
+    if not ok:
+        failed.append("configs_card_vs_cpu")
     ok, launches = run_main_path(
         create_waveformer, Config, SlidingWindowInferer, Predictor, ac, dc)
     if not ok:
@@ -655,22 +766,26 @@ def main():
             failed.append(f"{name} never launched on its path")
 
     def headline(rows, kname, source, replaces, **extra):
-        # the main-path call with the largest bound
+        # the main-path call with the largest bound; a bound set by the
+        # exponentials is one of operations (special-function ones)
         r = max((r for r in rows if "kernel_ms" in r), key=lambda r: r["bound_ms"])
+        by = {"bound_by": r["bound_by"]}
+        if r["bound_by"] == "exponentials":
+            by = {"bound_by": "operations", "bound_operations": "exp2"}
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[kname],
                 "max_abs_err": max(max(x["max_err_float32"], x["max_err_bfloat16"])
                                    for x in rows),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "shape": r["shape"], **extra}
+                **by, "library_ms": r["library_ms"], "shape": r["shape"], **extra}
 
     conv_src = "waveformer_tpu_torch/csrc/conv3.cu"
     cudnn = {"library_call": "F.conv3d, bf16, the conv alone (cuDNN)"}
     log(json.dumps({"kernels": [
         headline(results["attention"], "window_attention",
                  "waveformer_tpu_torch/csrc/window_attention.cu",
-                 "waveformer_tpu/ops/attention_pallas.py:34"),
+                 "waveformer_tpu/ops/attention_pallas.py:34",
+                 design=ac.design(torch.bfloat16, *ATTN_MAIN_SHAPES[0][2:])),
         headline(results["dwconv3"], "dwconv3",
                  "waveformer_tpu_torch/csrc/dwconv3.cu",
                  "waveformer_tpu/ops/dwconv_pallas.py:32"),

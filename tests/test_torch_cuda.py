@@ -26,8 +26,8 @@ from waveformer_tpu_torch.ops import ffn_tail_cuda as tft
 from waveformer_tpu_torch.ops import fused_conv_cuda as tfc
 from waveformer_tpu_torch.ops import tiled_matmul_cuda as ttm
 
-# the WaveFormer shapes, then every head dim of both kernel paths (bf16 with
-# D % 16 == 0 and N <= 512 runs on tensor cores, the rest on FMA loops)
+# the WaveFormer shapes, then every head dim of both kernel designs (bf16 with
+# D ∈ {16, 32, 48, 64} and N <= 512 on TMA + wgmma, the rest on FMA loops)
 ATTN_SHAPES = [(4, 3, 512, 16), (2, 24, 512, 16), (3, 2, 128, 8), (8, 24, 512, 16),
                (2, 2, 512, 32), (2, 2, 256, 48), (2, 2, 512, 64), (2, 2, 192, 24),
                (1, 2, 1024, 64)]
@@ -82,12 +82,30 @@ class TestKernelsOnCard:
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
     def test_wrappers_raise_on_unsupported_cuda_shapes(self, cuda_device):
-        t = torch.zeros(1, 1, 8, 8, device=cuda_device)
-        with pytest.raises(ValueError):
-            tac.window_attention(t, t, t, torch.zeros(1, 8, 8, device=cuda_device), 1.0)
-        with pytest.raises(ValueError):
-            tdc.dwconv3(torch.zeros(1, 2, 2, 2, 4, device=cuda_device),
+        before = (tac.launches, tdc.launches)
+        # what stays refused: N > 1024, D > 64, types other than fp32 and bf16
+        for n, d, dtype, exc in ((1025, 16, torch.float32, ValueError),
+                                 (64, 72, torch.float32, ValueError),
+                                 (64, 16, torch.float16, TypeError)):
+            t = torch.zeros(1, 1, n, d, device=cuda_device, dtype=dtype)
+            with pytest.raises(exc):
+                tac.window_attention(t, t, t, torch.zeros(1, n, n, device=cuda_device), 1.0)
+        with pytest.raises(TypeError):
+            tdc.dwconv3(torch.zeros(1, 2, 2, 2, 4, device=cuda_device, dtype=torch.float16),
                         torch.zeros(3, 3, 3, 4, device=cuda_device))
+        assert (tac.launches, tdc.launches) == before
+
+    @pytest.mark.parametrize("c", [4, 20, 36])
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_dwconv3_odd_channels(self, cuda_device, c, dtype, rtol, atol):
+        x = torch.randn(2, 6, 5, 7, c, device=cuda_device).to(dtype)
+        w = torch.randn(3, 3, 3, c, device=cuda_device)
+        before = tdc.launches
+        got = tdc.dwconv3(x, w)
+        want = tdc.dwconv3_reference(x.float(), w).to(dtype)
+        torch.cuda.synchronize()
+        assert tdc.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
     def test_unaligned_views_are_copied(self, cuda_device):
         buf = torch.randn(1 + 2 * 4 * 4 * 4 * 16, device=cuda_device)
@@ -104,6 +122,60 @@ class TestKernelsOnCard:
         torch.testing.assert_close(tac.window_attention(qbuf[1:].view_as(q), k, v, bu, 0.5),
                                    tac.window_attention_reference(q, k, v, b, 0.5),
                                    rtol=1e-5, atol=1e-4)
+
+
+# the seven calls of a batch-8 flagship forward; ragged windows of the TMA
+# design at each of its head dims; ragged windows of the FMA design
+ATTN_MAIN = [(512, 3, 512, 16), (64, 3, 512, 16), (8, 3, 512, 16), (64, 6, 512, 16),
+             (8, 6, 512, 16), (8, 12, 512, 16), (8, 24, 512, 16)]
+TMA_N, TMA_D = [64, 216, 343, 512], [16, 32, 64]
+FMA_N, FMA_D = [1, 8, 27, 216, 1000], [4, 8, 12, 24]
+
+
+@pytest.mark.cuda
+class TestWindowAttentionDesigns:
+    def _check(self, device, bw, h, n, d, dtype, rtol, atol, strided=False):
+        rng = np.random.RandomState(n * 131 + d)
+        if strided:  # views of a (BW, N, 3, H, D) projection, as the model passes them
+            qkv = torch.from_numpy(rng.randn(bw, n, 3, h, d).astype(np.float32))
+            q, k, v = qkv.to(device, dtype).permute(2, 0, 3, 1, 4)
+            b = torch.from_numpy((rng.randn(h, n, n) * 0.5).astype(np.float32)).to(device)
+        else:
+            q, k, v, b = (torch.from_numpy(a).to(device) for a in _qkvb(bw, h, n, d, seed=n + d))
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+        name = tac.design(dtype, n, d)
+        before = dict(tac.design_launches)
+        got = tac.window_attention(q, k, v, b, d**-0.5)
+        want = tac.window_attention_reference(q, k, v, b, d**-0.5)
+        torch.cuda.synchronize()
+        assert tac.design_launches[name] == before[name] + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        return name
+
+    @pytest.mark.parametrize("bw,h,n,d", ATTN_MAIN)
+    def test_tma_main_path_shapes(self, cuda_device, bw, h, n, d):
+        assert self._check(cuda_device, bw, h, n, d, torch.bfloat16, *TOLS[1][1:],
+                           strided=True) == "tma_wgmma"
+
+    @pytest.mark.parametrize("strided", [False, True])
+    @pytest.mark.parametrize("d", TMA_D)
+    @pytest.mark.parametrize("n", TMA_N)
+    def test_tma_ragged_windows(self, cuda_device, n, d, strided):
+        assert self._check(cuda_device, 3, 2, n, d, torch.bfloat16, *TOLS[1][1:],
+                           strided=strided) == "tma_wgmma"
+
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    @pytest.mark.parametrize("d", FMA_D)
+    @pytest.mark.parametrize("n", FMA_N)
+    def test_fma_ragged_windows(self, cuda_device, n, d, dtype, rtol, atol):
+        assert self._check(cuda_device, 2, 2, n, d, dtype, rtol, atol) == "fma"
+
+    def test_design_rule_matches_library(self, cuda_device):
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (1, 8, 27, 64, 216, 343, 512, 513, 1000, 1024):
+                for d in (1, 4, 8, 12, 16, 24, 32, 48, 56, 64):
+                    assert tac.library_design(dtype, n, d) == tac.design(dtype, n, d), (n, d)
 
 
 # (B, D, H, W), C, O: the JAX tests' shapes, C = 3…6 and O = 4…8 (the K-chunk

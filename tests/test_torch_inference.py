@@ -71,7 +71,8 @@ def test_patch_tta_falls_back_on_asymmetric_grid():
               mirror_axes=(0, 1, 2), tta_mode="patch")
     want = np.asarray(jsw.sliding_window_inference(
         jnp.asarray(v), jax_toy, layout="channels_first", **kw))
-    got = tsw.sliding_window_inference(torch.from_numpy(v), torch_toy, **kw)
+    got = tsw.sliding_window_inference(torch.from_numpy(v), torch_toy,
+                                       layout="channels_first", **kw)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
@@ -100,9 +101,10 @@ def test_predict_case_matches_jax():
 def test_predict_cases_pipeline_with_toy_model():
     cfg = dict(img_size=(32, 32, 32), in_chans=2, out_chans=3, embed_dims=(8, 16, 32, 64),
                depths=(1, 1, 1, 1), num_heads=(2, 4, 8, 8), drop_path_rate=0.0)
-    model = create_waveformer(cfg, device="cpu", seed=0)
+    model = create_waveformer(cfg, device="cpu", seed=0, io_layout="channels_first")
     inferer = tsw.SlidingWindowInferer((32, 32, 32), sw_batch_size=2, overlap=0.5,
-                                       mirror_axes=(0,), tta_mode="patch")
+                                       mirror_axes=(0,), tta_mode="patch",
+                                       layout="channels_first")
     pred = tpred.Predictor(inferer, device="cpu")
     vols = [_vol((2, 40, 32, 30), s) for s in (3, 4)]
     segs = list(pred.predict_cases(vols, model, out_channels=3))

@@ -58,10 +58,13 @@ class TestWindowAttentionPlain:
         for _, _, n, d in ATTN_SHAPES:
             assert tac.supported(n, d)
         assert tac.supported(1024, 64)
-        assert not tac.supported(500, 16)   # ragged N
-        assert not tac.supported(2048, 16)  # bias rows would not fit
-        assert not tac.supported(512, 12)   # not whole 8-element vectors
-        assert not tac.supported(512, 128)  # register budget
+        assert tac.supported(500, 16)       # ragged N
+        assert tac.supported(512, 12)       # D not a multiple of 8
+        assert tac.supported(1, 1) and tac.supported(216, 16) and tac.supported(8, 4)
+        assert not tac.supported(1025, 16)  # bias rows would not fit
+        assert not tac.supported(2048, 16)
+        assert not tac.supported(512, 72)   # register budget
+        assert not tac.supported(512, 128)
 
 
 class TestDWConv3Plain:
@@ -91,7 +94,8 @@ class TestDWConv3Plain:
 
     def test_supported(self):
         assert all(tdc.supported(c) for c in (96, 192, 384, 768, 1536, 8))
-        assert not tdc.supported(20)
+        assert all(tdc.supported(c) for c in (1, 4, 20, 36))  # masked channel tail
+        assert not tdc.supported(0)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -164,7 +164,7 @@ def _model_pair(cfg, shape, seed=0):
     x = _x(shape, seed + 10)
     jm = JaxWaveformer(**cfg, io_layout="channels_first")
     p = random_params(jm, jnp.asarray(x), seed=seed)
-    tm = create_waveformer(cfg, device="cpu")
+    tm = create_waveformer(cfg, device="cpu", io_layout="channels_first")
     tm.load_state_dict(
         jp.state_dict_from_jax(p, depths=cfg["depths"],
                                hf_refinement=cfg.get("hf_refinement", False)),
@@ -189,7 +189,7 @@ class TestWaveformer:
         jm = JaxWaveformer(**cfg, io_layout="channels_first")
         p = random_params(jm, jnp.zeros((1, 2, 32, 32, 32)), seed=3)
         sd = jp.state_dict_from_jax(p, depths=cfg["depths"], hf_refinement=True)
-        tm = create_waveformer(cfg, device="cpu")
+        tm = create_waveformer(cfg, device="cpu", io_layout="channels_first")
         tm.load_state_dict(sd, strict=True)
         back = convert_state_dict(tm.state_dict(), depths=cfg["depths"],
                                   hf_refinement=True, strict=True)
@@ -213,7 +213,8 @@ class TestWaveformer:
         assert sum(p.numel() for p in tm.parameters()) == 17_167_546
 
     def test_bf16_keeps_bias_table_fp32(self):
-        tm = create_waveformer(SMALL, dtype=torch.bfloat16, device="cpu")
+        tm = create_waveformer(SMALL, dtype=torch.bfloat16, device="cpu",
+                               io_layout="channels_first")
         attn = tm.waveformer_encoder.block1[0].attn
         assert attn.relative_position_bias_table.dtype == torch.float32
         assert attn.qkv.weight.dtype == torch.bfloat16
@@ -222,7 +223,8 @@ class TestWaveformer:
         assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
 
     def test_deep_supervision_shapes(self):
-        tm = create_waveformer({**SMALL, "deep_supervision": True}, device="cpu")
+        tm = create_waveformer({**SMALL, "deep_supervision": True}, device="cpu",
+                               io_layout="channels_first")
         with torch.no_grad():
             outs = tm(torch.zeros(1, 2, 32, 32, 32))
         assert [tuple(o.shape) for o in outs] == [

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel waveformer_tpu/ops/dwconv_pallas.py (`dwconv3`,
 // `_kernel` :32-44): stride 1, zero padding 1, one (3,3,3) filter per
 // channel, fp32 accumulation in the kd → kh → kw tap order, no bias.
-// x, y: (B, D, H, W, C) contiguous, C a multiple of 8; weights (27, C) fp32.
+// x, y: (B, D, H, W, C) contiguous, any C ≥ 1; weights (27, C) fp32.
 //
 // What bounds it: bytes. 27 multiply-adds per element is far below the
 // card's ops:byte balance; at (8, 64, 64, 64, 192) bf16 the kernel must read
@@ -17,6 +17,10 @@
 //     per voxel, and overlapping rows between neighbours hit L1;
 //   * the block's 27 × 32 tap weights sit in shared memory; each tap is read
 //     once per row for both outputs, as a broadcast to 8 lanes.
+// With C % 8 != 0 (`kTail`) a voxel's channels are not 16-byte aligned: the
+// same kernel loads and stores element by element, the last 8-channel chunk
+// masked past C (no configuration of the repository has such a C on its
+// main path).
 
 #include <stdint.h>
 
@@ -26,10 +30,23 @@ namespace {
 
 constexpr int kOutW = 2;  // output voxels per thread along W
 
+// 8 channels of one output voxel: one 16-byte store, or (kTail) the first
+// `left` of them one by one.
+template <typename T, bool kTail>
+__device__ __forceinline__ void store_out(T* p, const float* v, int left) {
+  if constexpr (!kTail) {
+    wft::store8(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < left) p[i] = wft::from_f<T>(v[i]);
+  }
+}
+
 // One thread: 8 channels × 2 W-outputs of one (b, h) row, marching along D.
 // Input plane p feeds outputs p + 1 (kd = 0), p (kd = 1) and p − 1 (kd = 2),
 // so marching p upwards adds each output's taps in kd → kh → kw order.
-template <typename T>
+template <typename T, bool kTail>
 __global__ void __launch_bounds__(256) dwconv3_kernel(
     const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
     int B, int D, int H, int W, int C, int chunks_per_block) {
@@ -37,8 +54,8 @@ __global__ void __launch_bounds__(256) dwconv3_kernel(
   const int cc = chunks_per_block;
   const int chunk0 = blockIdx.y * cc;
   for (int e = threadIdx.x; e < 27 * cc * 8; e += blockDim.x) {
-    const int t = e / (cc * 8), c = e % (cc * 8);
-    wsm[e] = w[t * C + chunk0 * 8 + c];
+    const int t = e / (cc * 8), c = chunk0 * 8 + e % (cc * 8);
+    wsm[e] = !kTail || c < C ? w[t * C + c] : 0.f;
   }
   __syncthreads();
 
@@ -76,8 +93,12 @@ __global__ void __launch_bounds__(256) dwconv3_kernel(
 #pragma unroll
       for (int pidx = 0; pidx < kOutW + 2; ++pidx) {
         const int ww = w0 + pidx - 1;
-        if (ww >= 0 && ww < W) {
+        if (ww >= 0 && ww < W && !kTail) {
           wft::load8(row + (long long)ww * C, v[pidx]);
+        } else if (ww >= 0 && ww < W) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            v[pidx][i] = c0 + i < C ? wft::to_f(row[(long long)ww * C + i]) : 0.f;
         } else {
 #pragma unroll
           for (int i = 0; i < 8; ++i) v[pidx][i] = 0.f;
@@ -108,7 +129,7 @@ __global__ void __launch_bounds__(256) dwconv3_kernel(
       T* out = yb + (long long)(pd - 1) * plane;
 #pragma unroll
       for (int o = 0; o < kOutW; ++o)
-        if (w0 + o < W) wft::store8(out + (long long)(w0 + o) * C, acc_lo[o]);
+        if (w0 + o < W) store_out<T, kTail>(out + (long long)(w0 + o) * C, acc_lo[o], C - c0);
     }
 #pragma unroll
     for (int o = 0; o < kOutW; ++o)
@@ -123,7 +144,7 @@ __global__ void __launch_bounds__(256) dwconv3_kernel(
   T* out = yb + (long long)(D - 1) * plane;
 #pragma unroll
   for (int o = 0; o < kOutW; ++o)
-    if (w0 + o < W) wft::store8(out + (long long)(w0 + o) * C, acc_lo[o]);
+    if (w0 + o < W) store_out<T, kTail>(out + (long long)(w0 + o) * C, acc_lo[o], C - c0);
 }
 
 // Channel chunks per block: 4 where they divide, so a warp spans 4 chunks ×
@@ -132,10 +153,10 @@ int pick_chunks(int chunks) {
   return chunks % 4 == 0 ? 4 : (chunks % 2 == 0 ? 2 : 1);
 }
 
-template <typename T>
+template <typename T, bool kTail>
 cudaError_t launch(const void* x, const float* w, void* y, int B, int D,
                    int H, int W, int C, cudaStream_t stream) {
-  const int chunks = C / 8;
+  const int chunks = (C + 7) / 8;
   const int cc = pick_chunks(chunks);
   const int per_block = 256 / cc;
   const long long items = (long long)B * H * ((W + kOutW - 1) / kOutW);
@@ -143,7 +164,7 @@ cudaError_t launch(const void* x, const float* w, void* y, int B, int D,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = (size_t)27 * cc * 8 * sizeof(float);
   dim3 grid((unsigned)blocks, chunks / cc);
-  dwconv3_kernel<T><<<grid, per_block * cc, smem, stream>>>(
+  dwconv3_kernel<T, kTail><<<grid, per_block * cc, smem, stream>>>(
       static_cast<const T*>(x), w, static_cast<T*>(y), B, D, H, W, C, cc);
   return cudaGetLastError();
 }
@@ -153,14 +174,19 @@ cudaError_t launch(const void* x, const float* w, void* y, int B, int D,
 // Returns a cudaError_t (0 on success).
 extern "C" int wft_dwconv3(int dtype, const void* x, const void* w, void* y,
                            int B, int D, int H, int W, int C, void* stream) {
-  if (C % 8 != 0 || B < 1 || D < 1 || H < 1 || W < 1) {
+  if (C < 1 || B < 1 || D < 1 || H < 1 || W < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
-  if (dtype == wft::kFloat32) return (int)launch<float>(x, wf, y, B, D, H, W, C, s);
+  const bool tail = C % 8 != 0;
+  if (dtype == wft::kFloat32) {
+    return (int)(tail ? launch<float, true>(x, wf, y, B, D, H, W, C, s)
+                      : launch<float, false>(x, wf, y, B, D, H, W, C, s));
+  }
   if (dtype == wft::kBFloat16) {
-    return (int)launch<__nv_bfloat16>(x, wf, y, B, D, H, W, C, s);
+    return (int)(tail ? launch<__nv_bfloat16, true>(x, wf, y, B, D, H, W, C, s)
+                      : launch<__nv_bfloat16, false>(x, wf, y, B, D, H, W, C, s));
   }
   return (int)cudaErrorInvalidValue;
 }

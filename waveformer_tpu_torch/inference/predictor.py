@@ -1,7 +1,9 @@
 """Full-volume predictor: sliding window + TTA + geometry restoration.
 
 Port of `waveformer_tpu/inference/predictor.py` (reference `Predictor`,
-`light_training/prediction.py:29-227`) for channels-first volumes:
+`light_training/prediction.py:29-227`), in the inferer's layout
+((D, H, W, C) volumes by default, (C, D, H, W) with a channels-first
+inferer):
   * mirror-TTA sliding-window logits on the device (`SlidingWindowInferer`);
   * trilinear resample of the logits to the pre-resampling crop shape;
   * argmax on the device, so only the uint8 label map comes back;
@@ -64,20 +66,31 @@ class Predictor:
         self.upload_dtype = upload_dtype
         self.device = resolve_device(device)
 
+    @property
+    def channels_first(self) -> bool:
+        return getattr(self.inferer, "layout", "channels_last") == "channels_first"
+
     def predict_logits(
         self, volume: torch.Tensor, predictor_fn: Callable, out_channels: int
     ) -> torch.Tensor:
-        """(C, D, H, W) preprocessed volume → blended TTA logits
-        (out_channels, D, H, W), fp32, on the device."""
+        """(D, H, W, C) preprocessed volume → blended TTA logits
+        (D, H, W, out_channels), fp32, on the device; (C, D, H, W) →
+        (out_channels, D, H, W) with a channels-first inferer."""
         return self.inferer(volume, predictor_fn, out_channels)
 
-    def resample_logits_to_crop(self, logits: torch.Tensor, properties: Dict) -> np.ndarray:
-        """Trilinear resize (align_corners=False) of (out, D, H, W) logits to
-        `shape_after_cropping_and_before_resampling`."""
+    def _resample(self, logits: torch.Tensor, properties: Dict) -> torch.Tensor:
+        """Trilinear resize (align_corners=False) of the logits' spatial
+        axes to `shape_after_cropping_and_before_resampling`."""
         target = tuple(int(v) for v in properties[_crop_shape_key(properties)])
-        if tuple(logits.shape[1:]) != target:
-            logits = resize_trilinear(logits[None], target, axes=(2, 3, 4))[0]
-        return logits.cpu().numpy()
+        cf = self.channels_first
+        if tuple(logits.shape[1:] if cf else logits.shape[:3]) != target:
+            axes = (2, 3, 4) if cf else (1, 2, 3)
+            logits = resize_trilinear(logits[None], target, axes=axes)[0]
+        return logits
+
+    def resample_logits_to_crop(self, logits: torch.Tensor, properties: Dict) -> np.ndarray:
+        """The logits resized to the pre-resampling crop, on the host."""
+        return self._resample(logits, properties).cpu().numpy()
 
     def embed_to_original(
         self, seg_crop: np.ndarray, properties: Dict, fill: int = 0
@@ -120,10 +133,9 @@ class Predictor:
         with torch.inference_mode():
             logits = self.predict_logits(volume, predictor_fn, out_channels)
             if properties is not None:
-                target = tuple(int(v) for v in properties[_crop_shape_key(properties)])
-                if tuple(logits.shape[1:]) != target:
-                    logits = resize_trilinear(logits[None], target, axes=(2, 3, 4))[0]
-            seg_dev = torch.argmax(logits, dim=0).to(torch.uint8)
+                logits = self._resample(logits, properties)
+            seg_dev = torch.argmax(logits, dim=0 if self.channels_first else -1)
+            seg_dev = seg_dev.to(torch.uint8)
         return seg_dev, properties
 
     def _finish_case(self, seg_dev: torch.Tensor, properties) -> np.ndarray:

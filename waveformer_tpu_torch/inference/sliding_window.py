@@ -1,9 +1,10 @@
 """Sliding-window inference with Gaussian blending and mirror TTA.
 
-Port of the channels-first path of
-`waveformer_tpu/inference/sliding_window.py` (MONAI
+Port of `waveformer_tpu/inference/sliding_window.py` (MONAI
 `sliding_window_inference` semantics, reference TTA of
-`light_training/prediction.py:110-160`). The patch grid, the Gaussian
+`light_training/prediction.py:110-160`), in both of its layouts:
+channels-last (D, H, W, C) volumes, the default as in JAX, and
+channels-first (C, D, H, W). The patch grid, the Gaussian
 importance map and the count map are numpy, computed on the host (copies
 of the JAX package's helpers). The stitch runs on the volume's device: a
 Python loop over chunks of `sw_batch_size` patches, an fp32 accumulator,
@@ -134,16 +135,21 @@ def sliding_window_inference(
     mirror_axes: Optional[Sequence[int]] = None,
     tta_mode: str = "volume",
     maps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    layout: str = "channels_last",
 ) -> torch.Tensor:
-    """Blend `predictor` over dense patches of one channels-first volume.
+    """Blend `predictor` over dense patches of one volume.
 
-    volume: (C, D, H, W), spatial dims already bucket-padded.
-    predictor: (B, C, *roi) → (B, out_channels, *roi) logits.
-    Returns (out_channels, D, H, W) fp32 logits, TTA-averaged if mirrored.
+    volume: (D, H, W, C), spatial dims already bucket-padded.
+    predictor: (B, *roi, C) → (B, *roi, out_channels) logits.
+    Returns (D, H, W, out_channels) fp32 logits, TTA-averaged if mirrored.
+    With `layout="channels_first"` all three are channels-first instead:
+    (C, D, H, W), (B, C, *roi) → (B, out_channels, *roi) and
+    (out_channels, D, H, W).
     `maps` may carry the (importance, count) maps already on the device.
     """
+    cf = _channels_first(layout)
     roi_size = tuple(int(r) for r in roi_size)
-    spatial = tuple(volume.shape[1:])
+    spatial = tuple(volume.shape[1:] if cf else volume.shape[:3])
     starts = dense_patch_starts(spatial, roi_size, overlap)
     n_patches = len(starts)
     if maps is None:
@@ -152,6 +158,10 @@ def sliding_window_inference(
             torch.from_numpy(count_map(spatial, roi_size, overlap, mode)).to(volume.device),
         )
     imp, cm = maps
+    if not cf:  # weights broadcast over the trailing channel axis
+        imp, cm = imp[..., None], cm[..., None]
+    # first spatial axis of a volume and of a batch of patches
+    vol_ax, patch_ax = (1, 2) if cf else (0, 1)
     # the last chunk is filled with repeats of the final patch, whose
     # outputs are dropped: every predictor call sees the same batch size
     pad_to = int(math.ceil(n_patches / sw_batch_size)) * sw_batch_size
@@ -159,10 +169,12 @@ def sliding_window_inference(
     sts += [sts[-1]] * (pad_to - n_patches)
 
     def slices(s):
-        return (slice(None),) + tuple(slice(a, a + r) for a, r in zip(s, roi_size))
+        sp = tuple(slice(a, a + r) for a, r in zip(s, roi_size))
+        return (slice(None),) + sp if cf else sp
 
     def run_one_orientation(vol: torch.Tensor, pred_fn) -> torch.Tensor:
-        acc = torch.zeros((out_channels, *spatial), dtype=torch.float32, device=vol.device)
+        shape = (out_channels, *spatial) if cf else (*spatial, out_channels)
+        acc = torch.zeros(shape, dtype=torch.float32, device=vol.device)
         for i0 in range(0, pad_to, sw_batch_size):
             chunk = sts[i0 : i0 + sw_batch_size]
             patches = torch.stack([vol[slices(s)] for s in chunk], dim=0)
@@ -180,8 +192,8 @@ def sliding_window_inference(
 
         def tta_predictor(patches: torch.Tensor) -> torch.Tensor:
             total = None
-            for axes in combos:  # patches (B, C, *roi): spatial dims 2..4
-                dims = tuple(a + 2 for a in axes)
+            for axes in combos:
+                dims = tuple(a + patch_ax for a in axes)
                 p = torch.flip(patches, dims) if axes else patches
                 part = predictor(p).float()
                 part = torch.flip(part, dims) if axes else part
@@ -190,19 +202,27 @@ def sliding_window_inference(
 
         return run_one_orientation(volume, tta_predictor) / cm
 
-    total = torch.zeros((out_channels, *spatial), dtype=torch.float32, device=volume.device)
+    total = None
     for axes in combos:
-        dims = tuple(a + 1 for a in axes)
+        dims = tuple(a + vol_ax for a in axes)
         v = torch.flip(volume, dims) if axes else volume
         pred = run_one_orientation(v, predictor) / cm
-        total += torch.flip(pred, dims) if axes else pred
+        pred = torch.flip(pred, dims) if axes else pred
+        total = pred if total is None else total + pred
     return total / len(combos)
 
 
+def _channels_first(layout: str) -> bool:
+    if layout not in ("channels_last", "channels_first"):
+        raise ValueError(f"unknown layout {layout!r}")
+    return layout == "channels_first"
+
+
 class SlidingWindowInferer:
-    """Configured sliding-window inference (MONAI `SlidingWindowInferer`)
-    on channels-first volumes (C, D, H, W): pads to the bucket shape, runs
-    `sliding_window_inference` without autograd, crops back."""
+    """Configured sliding-window inference (MONAI `SlidingWindowInferer`):
+    pads a volume to the bucket shape, runs `sliding_window_inference`
+    without autograd, crops back. Volumes are (D, H, W, C) by default, as in
+    the JAX package, or (C, D, H, W) with `layout="channels_first"`."""
 
     def __init__(
         self,
@@ -212,10 +232,9 @@ class SlidingWindowInferer:
         mode: str = "gaussian",
         mirror_axes: Optional[Sequence[int]] = None,
         tta_mode: str = "volume",
-        layout: str = "channels_first",
+        layout: str = "channels_last",
     ):
-        if layout != "channels_first":
-            raise ValueError("the port's inferer takes channels-first volumes only")
+        _channels_first(layout)
         if tta_mode not in ("volume", "patch"):
             raise ValueError(f"unknown tta_mode {tta_mode!r}")
         self.roi_size = tuple(int(r) for r in roi_size)
@@ -247,13 +266,15 @@ class SlidingWindowInferer:
         predictor: Callable[[torch.Tensor], torch.Tensor],
         out_channels: int,
     ) -> torch.Tensor:
-        """volume (C, D, H, W) → fp32 logits (out_channels, D, H, W) at the
+        """volume (D, H, W, C) → fp32 logits (D, H, W, out_channels), or
+        (C, D, H, W) → (out_channels, D, H, W) channels-first, at the
         volume's own shape, on its device."""
+        cf = _channels_first(self.layout)
         volume = torch.as_tensor(volume)
-        spatial = tuple(volume.shape[1:])
+        spatial = tuple(volume.shape[1:] if cf else volume.shape[:3])
         padded = self.padded_shape(spatial)
         with torch.inference_mode():
-            pads = []
+            pads = [] if cf else [0, 0]  # F.pad lists the last axis first
             for p, s in zip(reversed(padded), reversed(spatial)):
                 pads += [0, p - s]
             vol = F.pad(volume, pads) if any(pads) else volume
@@ -268,5 +289,7 @@ class SlidingWindowInferer:
                 mirror_axes=self.mirror_axes,
                 tta_mode=self.tta_mode,
                 maps=self._device_maps(padded, vol.device),
+                layout=self.layout,
             )
-            return logits[:, : spatial[0], : spatial[1], : spatial[2]]
+            crop = tuple(slice(0, s) for s in spatial)
+            return logits[(slice(None),) + crop] if cf else logits[crop]

@@ -2,9 +2,9 @@
 
 Port of `waveformer_tpu/models/waveformer.py` (reference
 `network_models/waveformer.py:36-334`, `network_backbone.py:131-431`).
-Input and logits are NCDHW, as the JAX model's
-`io_layout="channels_first"`; inside, the model is channels-last like the
-JAX package. The module tree reproduces the reference `state_dict` keys,
+Input and logits follow `io_layout`, as in the JAX model: (B, D, H, W, C)
+for "channels_last" (the default) or (B, C, D, H, W) for
+"channels_first"; inside, the model is channels-last like the JAX package. The module tree reproduces the reference `state_dict` keys,
 so released reference checkpoints load with `strict=True`.
 """
 
@@ -99,9 +99,11 @@ class MultiscaleTransformer(nn.Module):
 
 
 class Waveformer(nn.Module):
-    """U-shaped WaveFormer segmentation network: (B, C_in, D, H, W) →
-    logits (B, out_chans, D, H, W) in the compute dtype (a list of three
-    logits at full, half and quarter resolution with `deep_supervision`)."""
+    """U-shaped WaveFormer segmentation network: (B, D, H, W, C_in) →
+    logits (B, D, H, W, out_chans) in the compute dtype, or (B, C_in, D, H,
+    W) → (B, out_chans, D, H, W) with `io_layout="channels_first"` (a list
+    of three logits at full, half and quarter resolution with
+    `deep_supervision`). The layout does not change the parameters."""
 
     def __init__(
         self,
@@ -123,8 +125,12 @@ class Waveformer(nn.Module):
         res_block: bool = True,
         use_checkpoint: bool = False,
         deep_supervision: bool = False,
+        io_layout: str = "channels_last",
     ):
         super().__init__()
+        if io_layout not in ("channels_last", "channels_first"):
+            raise ValueError(f"unknown io_layout {io_layout!r}")
+        self.io_layout = io_layout
         fs = tuple(embed_dims)
         self.use_checkpoint = use_checkpoint
         self.deep_supervision = deep_supervision
@@ -193,8 +199,16 @@ class Waveformer(nn.Module):
             return checkpoint(mod, *args, use_reentrant=False)
         return mod(*args)
 
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        if self.io_layout == "channels_first":
+            return h.permute(0, 4, 1, 2, 3).contiguous()
+        return h
+
     def forward(self, x_in: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
-        x = x_in.to(self.compute_dtype).permute(0, 2, 3, 4, 1).contiguous()
+        x = x_in.to(self.compute_dtype)
+        if self.io_layout == "channels_first":
+            x = x.permute(0, 2, 3, 4, 1)
+        x = x.contiguous()
         outs, outs_hf = self.waveformer_encoder(x)
         enc0 = self._run(self.encoder1, x)
         enc1 = self._run(self.encoder2, outs[0])
@@ -208,12 +222,10 @@ class Waveformer(nn.Module):
         dec3_up = self._run(self.learnable_up3, dec3)
         combined = torch.cat([dec4_up, dec3_up, dec2], dim=-1)
         dec1 = self._run(self.decoder1, combined, enc0)
-        logits = self.out(dec1).permute(0, 4, 1, 2, 3).contiguous()
+        logits = self._logits(self.out(dec1))
         if not self.deep_supervision:
             return logits
-        aux1 = self.ds_out1(dec2).permute(0, 4, 1, 2, 3).contiguous()
-        aux2 = self.ds_out2(dec3).permute(0, 4, 1, 2, 3).contiguous()
-        return [logits, aux1, aux2]
+        return [logits, self._logits(self.ds_out1(dec2)), self._logits(self.ds_out2(dec3))]
 
 
 def create_waveformer(
@@ -224,7 +236,8 @@ def create_waveformer(
     **overrides,
 ) -> Waveformer:
     """Build a `Waveformer` from `NetworkConfig.model_kwargs()` and/or
-    keyword overrides, in eval mode, with parameters in `dtype` on
+    keyword overrides (`io_layout` included, "channels_last" by default as
+    in the JAX package), in eval mode, with parameters in `dtype` on
     `device` (the CUDA device unless the caller asks for another).
     `seed` makes the random initial weights reproducible."""
     dev = resolve_device(device)
@@ -232,7 +245,6 @@ def create_waveformer(
     if network_config:
         kwargs.update(network_config)
     kwargs.update(overrides)
-    kwargs.pop("io_layout", None)  # always channels-first at the boundary
     valid = set(inspect.signature(Waveformer).parameters)
     kwargs = {
         k: tuple(v) if isinstance(v, list) else v

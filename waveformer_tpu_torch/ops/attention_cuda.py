@@ -6,14 +6,17 @@ interface is the JAX one: q/k/v (B·nW, H, N, D), bias (H, N, N) fp32, a
 Python float scale; the result is (B·nW, H, N, D) in the input dtype.
 
 On a CPU tensor the wrapper runs `window_attention_reference`; on a CUDA
-tensor it launches the kernel or raises. The backward is the plain
-composition, as `_bwd` of the JAX kernel is.
+tensor it launches the kernel or raises. The kernel takes any N from 1 to
+1024 and D from 1 to 64, in fp32 and bf16; which of its two designs runs
+depends on the dtype and the shape only (`design`): bf16 with D ∈ {16, 32,
+48, 64} and N ≤ 512 on the TMA + `wgmma` kernel, the rest on the fp32 FMA
+kernel. `design_launches` counts the launches of each. The backward is the
+plain composition, as `_bwd` of the JAX kernel is.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -23,13 +26,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # per-launch counter, read by chip_smoke.py to prove the main path ran here
 launches = 0
+# the kernel's designs, by the number `wft_window_attention_design` returns,
+# and the launches of each
+DESIGNS = ("fma", "tma_wgmma")
+design_launches = {name: 0 for name in DESIGNS}
+TMA_HEAD_DIMS = (16, 32, 48, 64)
 
 
 def supported(n: int, d: int) -> bool:
-    """Shapes the kernel takes: N a multiple of 64 up to 1024 (query and
-    key tiles of 64; the 64 or 32 bias rows of a block fit shared memory),
-    D a multiple of 8 up to 64 (16-byte vector loads, registers)."""
-    return n % 64 == 0 and 0 < n <= 1024 and d % 8 == 0 and 0 < d <= 64
+    """Shapes the kernel takes: N up to 1024 (the 32 or 64 bias rows of a
+    block fit shared memory) and D up to 64 (registers)."""
+    return 0 < n <= 1024 and 0 < d <= 64
+
+
+def design(dtype: torch.dtype, n: int, d: int) -> str:
+    """The design `csrc/window_attention.cu` launches for these arguments
+    (its `wft_window_attention_design`): bf16 with D ∈ {16, 32, 48, 64}
+    (whole 16-deep wgmma steps) and N ≤ 512 (64 bias rows of fp32 beside the
+    K/V ring) on TMA + wgmma, everything else on the FMA kernel."""
+    if dtype == torch.bfloat16 and d in TMA_HEAD_DIMS and n <= 512:
+        return "tma_wgmma"
+    return "fma"
 
 
 def window_attention_reference(q, k, v, bias, scale: float) -> torch.Tensor:
@@ -43,27 +60,13 @@ def window_attention_reference(q, k, v, bias, scale: float) -> torch.Tensor:
     return out.to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _windows_per_block(bw: int, h: int, n: int, device: torch.device) -> int:
-    """Windows per block so that about two waves of blocks cover the SMs:
-    fewer windows per block re-read the bias more often, more leave SMs idle."""
-    qt = 64 if n <= 512 else 32
-    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
-    per_window_blocks = (n // qt) * h
-    groups = max(1, min(bw, -(-2 * sms // per_window_blocks)))
-    return -(-bw // groups)
-
-
-def _vector_ok(t: torch.Tensor) -> bool:
-    return (
-        t.stride(-1) == 1
-        and all(s % 8 == 0 for s in t.stride()[:-1])
-        and t.data_ptr() % 16 == 0
-    )
+def _layout_ok(t: torch.Tensor) -> bool:
+    """Rows the kernel can read: contiguous, and at D % 8 == 0 (16-byte
+    vectors, TMA) 16-byte aligned with strides of whole 8-element vectors."""
+    if t.stride(-1) != 1:
+        return False
+    return t.shape[-1] % 8 != 0 or (
+        all(s % 8 == 0 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0)
 
 
 def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
@@ -77,31 +80,42 @@ def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
         raise ValueError("window_attention: q/k/v (BW,H,N,D) and bias (H,N,N)")
     if not (q.is_cuda and k.is_cuda and v.is_cuda and bias.is_cuda):
         raise ValueError("window_attention: all inputs must be CUDA tensors")
-    q, k, v = (t if _vector_ok(t) else t.clone(memory_format=torch.contiguous_format)
+    q, k, v = (t if _layout_ok(t) else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
     bias = bias.to(torch.float32).contiguous()
     if bias.data_ptr() % 16:  # the kernel loads the bias as float4
         bias = bias.clone()
     # (BW, N, H, D) storage: the caller's (BW, N, H·D) merge is then free
     out = torch.empty((bw, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lib = _build.LIBRARIES.get("window_attention")
-    fn = lib.wft_window_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
+    fn = _build.LIBRARIES.get("window_attention").wft_window_attention
+    if fn.argtypes is None:  # once per loaded library
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        )
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     err = fn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), out.data_ptr(), *strides, bw, h, n, d, float(scale),
-        _windows_per_block(bw, h, n, q.device), torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "window_attention launch")
+    name = design(q.dtype, n, d)
+    _build.check(err, f"window_attention launch ({name})")
     launches += 1
+    design_launches[name] += 1
     return out
+
+
+def library_design(dtype: torch.dtype, n: int, d: int) -> str:
+    """`wft_window_attention_design` of the built library (the rule that
+    `design` restates); needs nvcc."""
+    fn = _build.LIBRARIES.get("window_attention").wft_window_attention_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return DESIGNS[fn(_DTYPES[dtype], n, d)]
 
 
 class _WindowAttention(torch.autograd.Function):

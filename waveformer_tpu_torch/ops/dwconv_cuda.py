@@ -25,8 +25,9 @@ launches = 0
 
 
 def supported(c: int) -> bool:
-    """Channel counts the kernel takes: whole 8-channel vectors."""
-    return c % 8 == 0 and c > 0
+    """Channel counts the kernel takes: any (16-byte vectors where C % 8 ==
+    0, a masked element-wise tail otherwise)."""
+    return c > 0
 
 
 def dwconv3_reference(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -41,7 +42,7 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     global launches
     b, d, h, w, c = x.shape
     if not supported(c):
-        raise ValueError(f"dwconv3 kernel needs C % 8 == 0, got C={c}")
+        raise ValueError(f"dwconv3 kernel needs C > 0, got C={c}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"dwconv3 kernel takes fp32/bf16, got {x.dtype}")
     if kernel.shape != (3, 3, 3, c):

@@ -1,9 +1,9 @@
 """Time design variants of a hand-written kernel against the committed source.
 
-    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3] [--iters 32]
+    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3|window_attention] [--iters 32]
 
 A variant is the committed `csrc/<kernel>.cu` with a few text substitutions
-(tile sizes, ring depth, blocks per SM), listed in `VARIANTS`. Each is built
+(tile sizes, ring depth, warpgroups, the exponential), listed in `VARIANTS`. Each is built
 with the port's nvcc flags into `_build/variants/`, then swapped in for the
 committed library, so the public wrappers run it unchanged: every variant
 is first held against the plain version, then timed with CUDA events at the
@@ -26,7 +26,25 @@ import torch
 from waveformer_tpu_torch.ops import _build
 from waveformer_tpu_torch.ops import conv_cuda
 from waveformer_tpu_torch.ops import tiled_matmul_cuda as tm
+from waveformer_tpu_torch.ops.attention_cuda import window_attention, window_attention_reference
 from waveformer_tpu_torch.utils.profiling import device_time
+
+# the exp2 of one variant of window_attention.cu
+POLY_EXP2 = r"""// 2^x on the FMA pipe: Cody-Waite split x = i + f (|f| ≤ 1/2, i by the
+// 1.5·2^23 rounding trick), 2^f as a degree-4 polynomial (relative error
+// ≤ 4e-5, below bf16's 2^-9), 2^i added to the exponent bits
+__device__ __forceinline__ float exp2_fma(float x) {
+  x = fmaxf(x, -126.f);
+  const float j = x + 12582912.f;
+  const float f = x - (j - 12582912.f);
+  float p = fmaf(f, 9.6181291e-3f, 5.5504109e-2f);
+  p = fmaf(p, f, 2.4022651e-1f);
+  p = fmaf(p, f, 6.9314718e-1f);
+  p = fmaf(p, f, 1.f);
+  return __int_as_float(__float_as_int(p) + (__float_as_int(j) << 23));
+}
+
+// ex2.approx: 2^x on the special-function unit (−∞ → +0)"""
 
 # name → substitutions (old, new) on the committed source; the first is it
 VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
@@ -35,6 +53,20 @@ VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
         "one block per tile": [
             ("const int grid = (int)(tiles < sms ? tiles : sms);", "const int grid = (int)tiles;")],
         "persistent, 3 stages": [("kWgStages = 4;", "kWgStages = 3;")],
+    },
+    "window_attention": {
+        "3 consumer warpgroups at D = 16, 128-key tiles (committed)": [],
+        "2 consumer warpgroups (the first TMA design)": [("return D == 16 ? 3 : 2;", "return 2;")],
+        "a quarter of the exponentials as an FMA-pipe polynomial": [
+            ("// ex2.approx: 2^x on the special-function unit (−∞ → +0)", POLY_EXP2),
+            ("const float p00 = ex2(s[4 * j] - m0), p01 = ex2(s[4 * j + 1] - m0);\n"
+             "          const float p10 = ex2(s[4 * j + 2] - m1), p11 = ex2(s[4 * j + 3] - m1);",
+             "const bool fma_pipe = j % 4 == 3;  // unrolled: decided at compile time\n"
+             "          const float p00 = fma_pipe ? exp2_fma(s[4 * j] - m0) : ex2(s[4 * j] - m0);\n"
+             "          const float p01 = fma_pipe ? exp2_fma(s[4 * j + 1] - m0) : ex2(s[4 * j + 1] - m0);\n"
+             "          const float p10 = fma_pipe ? exp2_fma(s[4 * j + 2] - m1) : ex2(s[4 * j + 2] - m1);\n"
+             "          const float p11 = fma_pipe ? exp2_fma(s[4 * j + 3] - m1) : ex2(s[4 * j + 3] - m1);")],
+        "64-key tiles at every head dim": [("return D <= 32 ? 128 : 64;", "return 64;")],
     },
     "conv3": {
         "4 warpgroups (committed)": [],
@@ -53,8 +85,10 @@ VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
              "wft::wgmma_wait<2>();\n        if (s > 0 && mt == 0 && kh == 1)")],
     },
 }
-# (M, K, N) of the int8 probe; (B, (D, H, W), C, O) of the flagship's DHCW convs
+# (M, K, N) of the int8 probe; (B, (D, H, W), C, O) of the flagship's DHCW convs;
+# (B·nW, H, N, D) of the flagship's attention calls
 MM_SHAPES = [(32768, 1024, 512), (16384, 2048, 512)]
+ATTN_SHAPES = [(512, 3, 512, 16), (64, 6, 512, 16), (8, 3, 512, 16)]
 CONV_SHAPES = [(8, (128,) * 3, 4, 48), (8, (128,) * 3, 96, 48), (8, (64,) * 3, 96, 48),
                (8, (32,) * 3, 192, 96), (8, (16,) * 3, 384, 192)]
 
@@ -130,13 +164,44 @@ def _conv_cases(iters: int):
         yield [b, *dhw, c, o], check, time_it, {"unit": "ms"}
 
 
+def _attn_cases(iters: int):
+    for shape in ATTN_SHAPES:
+        bw, h, n, d = shape
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        b = torch.randn(h, n, n, device="cuda", generator=g) * 0.5
+
+        def check(q=q, k=k, v=v, b=b, d=d):
+            got = window_attention(q, k, v, b, d**-0.5).float()
+            want = window_attention_reference(q, k, v, b, d**-0.5).float()
+            return bool(((got - want).abs() <= 2e-2 + 1.6e-2 * want.abs()).all())
+
+        def time_it(q=q, k=k, v=v, b=b, d=d):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            window_attention(q, k, v, b, d**-0.5)
+            # queued behind a device sleep: the small calls are shorter than
+            # their host launch work, which would otherwise be timed
+            torch.cuda._sleep(1_000_000 * iters)
+            start.record()
+            for _ in range(iters):
+                window_attention(q, k, v, b, d**-0.5)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+
+        yield list(shape), check, time_it, {"unit": "ms"}
+
+
 def run(kernel: str, iters: int) -> List[dict]:
     names = list(VARIANTS[kernel])
     libs = {n: build(kernel, n, VARIANTS[kernel][n]) for n in names}
     committed = _build.LIBRARIES.get(kernel)
     card = torch.cuda.get_device_name(0)
     rows = []
-    cases = _mm_cases(iters) if kernel == "tiled_matmul" else _conv_cases(max(iters // 8, 3))
+    cases = {"tiled_matmul": lambda: _mm_cases(iters),
+             "conv3": lambda: _conv_cases(max(iters // 8, 3)),
+             "window_attention": lambda: _attn_cases(iters)}[kernel]()
     try:
         for shape, check, time_it, extra in cases:
             for n in names:

@@ -53,7 +53,8 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("trace_forward: no CUDA device")
 
-    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=0)
+    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=0,
+                              io_layout="channels_first")
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(args.batch, 4, 128, 128, 128, device="cuda", generator=g)
     x = x.to(torch.bfloat16)
