@@ -8,18 +8,22 @@ Phases, each of which must pass:
   2. build every kernel of `waveformer_tpu_torch/csrc` with nvcc;
   3. each kernel against its plain PyTorch version at the main path's
      shapes, in fp32 (TF32 off) and bf16, with its time beside the plain
-     version's, a PyTorch library call's and the card's bound;
+     version's, a PyTorch library call's and the card's bound (the stencil
+     also with a bias, on the design its rule names, beside the time of the
+     separate bias add its epilogue replaces);
   4. the flagship model on the card (kernels, fp32) against the same
      weights on the CPU (plain versions), batch 1 at 128³; then two more of
      the repository's configurations the same way, in the models' default
      channels-last layout: the abdomen CT network at 96³ (6³ = 216-token
      windows) and the 32³ example network (2³ = 8-token windows, head dims 4
-     and 8), each with exact window-attention launch counts per design;
+     and 8), each with exact window-attention launch counts per design and
+     every stencil launch on its fp32 `vector` design;
   5. the main path, as `bench.py` drives the JAX package: flagship bf16
      WaveFormer → 8-way patch-TTA sliding window (roi 128³, sw_batch 8,
      overlap 0.5) → `Predictor.predict_case` / `predict_cases` on synthetic
      (4, 150, 180, 145) cases; kernel launches are counted over the run
-     (window attention also per design: all on TMA + wgmma);
+     (window attention and the stencil also per design: all on TMA + wgmma
+     and all on the TMA plane ring);
   6. the dense 3³ conv kernel (`csrc/conv3.cu`) in its three forms (DHWC,
      DHCW, fused with the InstanceNorm prologue and statistics; bf16 DHCW on
      the TMA + wgmma design, the others on mma.sync) against its
@@ -232,33 +236,46 @@ def check_attention(ac):
 
 
 def check_dwconv(dc):
+    """Phase 3, stencil: each shape in fp32 (`vector`) and bf16 (`tma_ring`
+    at C % 8 == 0), with and without a bias, against the plain version in
+    fp32 rounded once, with a launch on the design `dc.design` names; at the
+    main path's shapes the bf16 kernel with its bias, beside the separate
+    bias add it replaces (`out + b`, bf16)."""
     dev = torch.device("cuda")
     rows, ok = [], True
     for shape in DW_MAIN_SHAPES + [(2, 6, 5, 7, 96)]:
         g = torch.Generator(device=dev).manual_seed(SEED)
         x = torch.randn(shape, device=dev, generator=g)
-        w = torch.randn(3, 3, 3, shape[-1], device=dev, generator=g)
-        row = {"kernel": "dwconv3", "shape": list(shape)}
+        c = shape[-1]
+        w = torch.randn(3, 3, 3, c, device=dev, generator=g)
+        b = torch.randn(c, device=dev, generator=g)
+        row = {"kernel": "dwconv3", "shape": list(shape),
+               "design": dc.design(torch.bfloat16, c)}
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
             xx = x.to(dt)
-            got = dc.dwconv3(xx, w)
-            want = dc.dwconv3_reference(xx.float(), w).to(dt)
-            torch.cuda.synchronize()
-            good, err = within(got, want, name)
-            ok &= good
-            row[f"max_err_{name}"] = err
+            for bias, key in ((None, name), (b, f"{name}_bias")):
+                design = dc.design(dt, c)
+                before = dc.design_launches[design]
+                got = dc.dwconv3(xx, w, bias)
+                want = dc.dwconv3_reference(xx.float(), w, bias).to(dt)
+                torch.cuda.synchronize()
+                good, err = within(got, want, name)
+                ok &= good and dc.design_launches[design] == before + 1
+                row[f"max_err_{key}"] = err
         if shape in DW_MAIN_SHAPES:
             xx = x.to(torch.bfloat16)
-            c = shape[-1]
+            bb = b.to(torch.bfloat16)
             wt = w.permute(3, 0, 1, 2).unsqueeze(1).to(torch.bfloat16).contiguous()
             xcf = xx.permute(0, 4, 1, 2, 3)
-            row["kernel_ms"] = cuda_ms(lambda: dc.dwconv3(xx, w))
-            row["plain_ms"] = cuda_ms(lambda: dc.dwconv3_reference(xx, w))
+            y = dc.dwconv3(xx, w)
+            row["kernel_ms"] = cuda_ms(lambda: dc.dwconv3(xx, w, b))
+            row["bias_add_ms"] = cuda_ms(lambda: y + bb)
+            row["plain_ms"] = cuda_ms(lambda: dc.dwconv3_reference(xx, w, bb))
             row["library_ms"] = cuda_ms(
                 lambda: F.conv3d(xcf, wt, padding=1, groups=c))
             elems = int(np.prod(shape))
-            nbytes = 2 * elems * 2 + 27 * c * 4
+            nbytes = 2 * elems * 2 + 28 * c * 4
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * 27 * elems / FP32_FLOPS * 1e3
             row["bound_ms"] = max(t_bytes, t_ops)
@@ -276,6 +293,7 @@ def check_flagship_vs_cpu(create_waveformer, Config, ac, dc):
     x = torch.from_numpy(
         np.random.default_rng(SEED).standard_normal((1, 4, 128, 128, 128)).astype(np.float32))
     a0, d0 = ac.launches, dc.launches
+    dw0 = dict(dc.design_launches)
     with torch.inference_mode():
         t0 = time.time()
         want = cpu(x)
@@ -287,8 +305,10 @@ def check_flagship_vs_cpu(create_waveformer, Config, ac, dc):
     row = {"check": "flagship_card_vs_cpu_fp32", "max_abs_logit_diff": diff,
            "max_abs_logit": scale, "cpu_s": t_cpu,
            "window_attention_launches": ac.launches - a0,
-           "dwconv3_launches": dc.launches - d0}
+           "dwconv3_launches": dc.launches - d0,
+           "dwconv3_launches_by_design": {k: dc.design_launches[k] - dw0[k] for k in dw0}}
     ok &= row["window_attention_launches"] == 14 and row["dwconv3_launches"] == 10
+    ok &= row["dwconv3_launches_by_design"] == {"vector": 10, "tma_ring": 0}  # fp32
     log(json.dumps(row))
     return ok
 
@@ -309,10 +329,11 @@ def count_attention_calls(model, x):
     return out, len(calls)
 
 
-def check_configs_vs_cpu(create_waveformer, ac):
+def check_configs_vs_cpu(create_waveformer, ac, dc):
     """Phase 4, second half: the abdomen and 32³ configurations, batch 1,
     fp32, default (channels-last) layout, card against CPU within the
-    flagship's rule, with exact attention launch counts per design."""
+    flagship's rule, with exact attention launch counts per design and every
+    stencil launch on the fp32 `vector` design."""
     ok, rows = True, []
     for name, cfg in EXTRA_CONFIGS.items():
         cpu = create_waveformer(cfg, device="cpu", seed=SEED)
@@ -322,18 +343,23 @@ def check_configs_vs_cpu(create_waveformer, ac):
         x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(shape).astype(np.float32))
         want, calls = count_attention_calls(cpu, x)
         before = dict(ac.design_launches)
+        dw_before, d0 = dict(dc.design_launches), dc.launches
         with torch.inference_mode():
             got = gpu(x.cuda()).cpu()
         designs = {k: ac.design_launches[k] - before[k] for k in before}
+        dw_designs = {k: dc.design_launches[k] - dw_before[k] for k in dw_before}
         diff = float((got - want).abs().max())
         scale = float(want.abs().max())
         good = (bool(torch.isfinite(got).all()) and got.shape == want.shape
                 and diff <= 2e-3 * max(1.0, scale)
-                and designs == {"fma": calls, "tma_wgmma": 0} and calls > 0)
+                and designs == {"fma": calls, "tma_wgmma": 0} and calls > 0
+                and dw_designs == {"vector": dc.launches - d0, "tma_ring": 0}
+                and dc.launches > d0)
         ok &= good
         row = {"check": f"{name}_card_vs_cpu_fp32", "logits_shape": list(got.shape),
                "max_abs_logit_diff": diff, "max_abs_logit": scale,
-               "attention_calls": calls, "attention_launches_by_design": designs, "ok": good}
+               "attention_calls": calls, "attention_launches_by_design": designs,
+               "dwconv3_launches_by_design": dw_designs, "ok": good}
         log(json.dumps(row))
         rows.append(row)
         del cpu, gpu
@@ -363,15 +389,18 @@ def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac
     torch.cuda.reset_peak_memory_stats()
 
     ac.launches = dc.launches = 0
-    for k in ac.design_launches:
-        ac.design_launches[k] = 0
+    for counts in (ac.design_launches, dc.design_launches):
+        for k in counts:
+            counts[k] = 0
     t0 = time.time()
     seg = predictor.predict_case(cases[1], model, out_channels=4)
     s_case = time.time() - t0
     case_counts = (ac.launches, dc.launches)
     case_designs = dict(ac.design_launches)
+    dw_designs = dict(dc.design_launches)
     ok &= check_seg(seg) and case_counts == (112, 80)
     ok &= case_designs == {"fma": 0, "tma_wgmma": 112}
+    ok &= dw_designs == {"vector": 0, "tma_ring": 80}
 
     ac.launches = dc.launches = 0
     t0 = time.time()
@@ -388,6 +417,7 @@ def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac
            "per_case_launches": {"window_attention": case_counts[0],
                                  "dwconv3": case_counts[1]},
            "per_case_attention_designs": case_designs,
+           "per_case_dwconv3_designs": dw_designs,
            "stream_launches": {"window_attention": stream_counts[0],
                                "dwconv3": stream_counts[1]},
            "label_counts": np.bincount(seg.ravel(), minlength=4).tolist()}
@@ -736,7 +766,7 @@ def main():
             failed.append(name)
     if not check_flagship_vs_cpu(create_waveformer, Config, ac, dc):
         failed.append("flagship_card_vs_cpu")
-    ok, _ = check_configs_vs_cpu(create_waveformer, ac)
+    ok, _ = check_configs_vs_cpu(create_waveformer, ac, dc)
     if not ok:
         failed.append("configs_card_vs_cpu")
     ok, launches = run_main_path(
@@ -774,8 +804,8 @@ def main():
             by = {"bound_by": "operations", "bound_operations": "exp2"}
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[kname],
-                "max_abs_err": max(max(x["max_err_float32"], x["max_err_bfloat16"])
-                                   for x in rows),
+                "max_abs_err": max(v for x in rows for k, v in x.items()
+                                   if k.startswith("max_err_")),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 **by, "library_ms": r["library_ms"], "shape": r["shape"], **extra}
 
@@ -788,7 +818,8 @@ def main():
                  design=ac.design(torch.bfloat16, *ATTN_MAIN_SHAPES[0][2:])),
         headline(results["dwconv3"], "dwconv3",
                  "waveformer_tpu_torch/csrc/dwconv3.cu",
-                 "waveformer_tpu/ops/dwconv_pallas.py:32"),
+                 "waveformer_tpu/ops/dwconv_pallas.py:32",
+                 design=dc.design(torch.bfloat16, DW_MAIN_SHAPES[0][-1])),
         headline(results["conv3x3x3_same"], "conv3x3x3_same", conv_src,
                  "waveformer_tpu/ops/conv_pallas.py:51", **cudnn),
         headline(results["conv3x3x3_cw"], "conv3x3x3_cw", conv_src,

@@ -76,9 +76,13 @@ class TestKernelsOnCard:
     def test_dwconv3_matches_plain(self, cuda_device, shape, dtype, rtol, atol):
         x = torch.randn(shape, device=cuda_device).to(dtype)
         w = torch.randn(3, 3, 3, shape[-1], device=cuda_device)
+        before = dict(tdc.design_launches)
         got = tdc.dwconv3(x, w)
         want = tdc.dwconv3_reference(x.float(), w).to(dtype)
         torch.cuda.synchronize()
+        name = "vector" if dtype == torch.float32 else "tma_ring"
+        assert tdc.design(dtype, shape[-1]) == name
+        assert tdc.design_launches[name] == before[name] + 1
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
     def test_wrappers_raise_on_unsupported_cuda_shapes(self, cuda_device):
@@ -101,10 +105,12 @@ class TestKernelsOnCard:
         x = torch.randn(2, 6, 5, 7, c, device=cuda_device).to(dtype)
         w = torch.randn(3, 3, 3, c, device=cuda_device)
         before = tdc.launches
+        vector = tdc.design_launches["vector"]
         got = tdc.dwconv3(x, w)
         want = tdc.dwconv3_reference(x.float(), w).to(dtype)
         torch.cuda.synchronize()
         assert tdc.launches == before + 1
+        assert tdc.design(dtype, c) == "vector" and tdc.design_launches["vector"] == vector + 1
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
     def test_unaligned_views_are_copied(self, cuda_device):
@@ -122,6 +128,52 @@ class TestKernelsOnCard:
         torch.testing.assert_close(tac.window_attention(qbuf[1:].view_as(q), k, v, bu, 0.5),
                                    tac.window_attention_reference(q, k, v, b, 0.5),
                                    rtol=1e-5, atol=1e-4)
+
+
+# (B, D, H, W, C): the five shapes of a flagship forward at batch 2, then
+# ragged tiles (H, W and C past a whole 8 × 16 × 64 tile, a single voxel)
+DW_MAIN = [(2, 64, 64, 64, 192), (2, 32, 32, 32, 384), (2, 16, 16, 16, 768),
+           (2, 8, 8, 8, 1536), (2, 64, 64, 64, 96)]
+DW_RAGGED = [(2, 5, 6, 7, 64), (1, 1, 1, 1, 64), (1, 3, 17, 9, 200), (2, 9, 8, 8, 96)]
+
+
+@pytest.mark.cuda
+class TestDWConv3Designs:
+    @pytest.mark.parametrize("with_bias", [False, True])
+    @pytest.mark.parametrize("shape", DW_MAIN + DW_RAGGED)
+    def test_tma_ring_matches_plain(self, cuda_device, shape, with_bias):
+        g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+        x = torch.randn(shape, device=cuda_device, generator=g).to(torch.bfloat16)
+        w = torch.randn(3, 3, 3, shape[-1], device=cuda_device, generator=g)
+        b = torch.randn(shape[-1], device=cuda_device, generator=g) if with_bias else None
+        before = dict(tdc.design_launches)
+        got = tdc.dwconv3(x, w, b)
+        want = tdc.dwconv3_reference(x.float(), w, b).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        assert tdc.design_launches["tma_ring"] == before["tma_ring"] + 1
+        assert tdc.design_launches["vector"] == before["vector"]
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=2e-2)
+
+    @pytest.mark.parametrize("dtype,c", [(torch.float32, 96), (torch.float32, 20),
+                                         (torch.bfloat16, 20)])
+    def test_vector_bias_matches_plain(self, cuda_device, dtype, c):
+        g = torch.Generator(device=cuda_device).manual_seed(c)
+        x = torch.randn(2, 5, 6, 7, c, device=cuda_device, generator=g).to(dtype)
+        w = torch.randn(3, 3, 3, c, device=cuda_device, generator=g)
+        b = torch.randn(c, device=cuda_device, generator=g)
+        before = tdc.design_launches["vector"]
+        got = tdc.dwconv3(x, w, b)
+        want = tdc.dwconv3_reference(x.float(), w, b).to(dtype)
+        torch.cuda.synchronize()
+        assert tdc.design_launches["vector"] == before + 1
+        rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1.6e-2, 2e-2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+    def test_design_rule_matches_library(self, cuda_device):
+        for dtype in (torch.float32, torch.bfloat16):
+            for c in (4, 8, 20, 96, 192, 1536):
+                assert tdc.library_design(dtype, c) == tdc.design(dtype, c), (dtype, c)
 
 
 # the seven calls of a batch-8 flagship forward; ragged windows of the TMA

@@ -2,44 +2,98 @@
 //
 // Replaces the TPU kernel waveformer_tpu/ops/dwconv_pallas.py (`dwconv3`,
 // `_kernel` :32-44): stride 1, zero padding 1, one (3,3,3) filter per
-// channel, fp32 accumulation in the kd → kh → kw tap order, no bias.
-// x, y: (B, D, H, W, C) contiguous, any C ≥ 1; weights (27, C) fp32.
+// channel, fp32 accumulation in the kd → kh → kw tap order, one rounding to
+// the output dtype. New beside it: an optional fp32 bias (C,), added to the
+// fp32 sum before that rounding (the model's conv bias, which the JAX model
+// adds right after the stencil).
+// x, y: (B, D, H, W, C) contiguous, any C ≥ 1; weights (27, C) fp32; bias
+// (C,) fp32 or null.
 //
 // What bounds it: bytes. 27 multiply-adds per element is far below the
 // card's ops:byte balance; at (8, 64, 64, 64, 192) bf16 the kernel must read
-// and write 805 MB each, ≈0.48 ms at 3.35 TB/s. The design keeps loads wide
-// and reuses each load in registers:
-//   * a thread owns 8 channels (one 16-byte bf16 vector) of 2 consecutive
-//     output voxels along W of one (b, h) row and marches along D; each
-//     input plane is loaded once (3 rows × 4 vectors) and applied to the
-//     three outputs in flight (6 vector loads per output instead of 27);
-//   * a warp spans 4 channel vectors × 8 W-neighbours: 64 contiguous bytes
-//     per voxel, and overlapping rows between neighbours hit L1;
-//   * the block's 27 × 32 tap weights sit in shared memory; each tap is read
-//     once per row for both outputs, as a broadcast to 8 lanes.
-// With C % 8 != 0 (`kTail`) a voxel's channels are not 16-byte aligned: the
-// same kernel loads and stores element by element, the last 8-channel chunk
-// masked past C (no configuration of the repository has such a C on its
-// main path).
+// and write 805 MB each, ≈0.48 ms at 3.35 TB/s. The 27 fp32 FMAs per element
+// alone take ≈0.32 ms of the fp32 rate there, so the other instructions per
+// element (loads, unpacks, stores, addresses) have to stay few, or issue and
+// not bytes sets the pace.
+//
+// Two designs, chosen from the dtype and C only (`design_of`, queried by
+// `wft_dwconv3_design`):
+//
+// `tma_ring` (bf16, C % 8 == 0: every call of the WaveFormer path; TMA needs
+// the 2·C-byte W stride to be a multiple of 16 bytes). A block owns output
+// tiles of 8 (H) × 16 (W) voxels × 64 channels (8 × 8 × 128 where W ≤ 8, so
+// that no warp idles on a narrow volume) and marches each along D. One
+// thread loads one (channels, W + 2, 10) box per input plane, started at
+// (c0, w0 − 1, h0 − 1), into a ring of 4 plane stages (23-26 KB each) with
+// full and empty mbarriers, refilling the stage of plane m − 1 as it starts
+// plane m; TMA fills the halo outside the volume with zeros, so the padding
+// costs nothing, and each input byte leaves L2 about 10·18/(8·16) = 1.41
+// times. Eight warps each own a 2 × 8 voxel patch of 64 channels; lane l
+// owns channels 2l, 2l + 1 of them (one bf16x2 word: a warp reads one
+// 128-byte voxel row, conflict-free) and keeps their 27 taps in registers
+// for the whole tile. Each input plane is read once (4 rows × 10 words a
+// thread), unpacked once and fed to the three outputs it touches (input
+// plane p → outputs p + 1, p, p − 1 with kd = 0, 1, 2): three sets of 2 × 8
+// × 2 fp32 accumulators whose roles rotate statically (the D loop is
+// unrolled by 3), so no accumulator is moved. An output's first tap adds
+// onto its bias, the last one completes it, and it is rounded once and
+// stored as 32-bit words (a warp writes one whole 128-byte voxel row). Per
+// output element: 27 FMAs, 1.25 shared loads, 2.5 unpack instructions, half
+// a pack and half a store. Eight warps, two per scheduler, leave each
+// thread up to 255 registers (a ninth, producer warp would put three on one
+// scheduler and cap them at 168, which spilled). Equal work: one block per
+// SM walks an equal share of the tiles, each along all of D (cutting D into
+// segments where there are few tiles per block balances the SMs better but
+// re-reads two halo planes per segment, and was slower at every shape of
+// the WaveFormer path: PERF.md §6).
+//
+// `vector` (fp32, and bf16 with C % 8 != 0): a thread owns 8 channels (16-byte
+// vectors where C % 8 == 0, element by element otherwise: `kTail`) of 2
+// consecutive output voxels along W of one (b, h) row and
+// marches along D; each input plane is loaded once (3 rows × 4 vectors) and
+// applied to the three outputs in flight; the block's 27 × 32 tap weights sit
+// in shared memory.
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+enum Design : int { kVector = 0, kTmaRing = 1 };
+
+int design_of(int dtype, int c) {
+  return dtype == wft::kBFloat16 && c % 8 == 0 ? kTmaRing : kVector;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+// ---------------------------------------------------------------------------
+// The vector design (see the header).
+
 constexpr int kOutW = 2;  // output voxels per thread along W
 
-// 8 channels of one output voxel: one 16-byte store, or (kTail) the first
-// `left` of them one by one.
+// 8 channels of one output voxel plus their bias: one 16-byte store, or
+// (kTail) the first `left` of them one by one.
 template <typename T, bool kTail>
-__device__ __forceinline__ void store_out(T* p, const float* v, int left) {
+__device__ __forceinline__ void store_out(T* p, const float* v, const float* b, int left) {
+  float s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = v[i] + b[i];
   if constexpr (!kTail) {
-    wft::store8(p, v);
+    wft::store8(p, s);
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      if (i < left) p[i] = wft::from_f<T>(v[i]);
+      if (i < left) p[i] = wft::from_f<T>(s[i]);
   }
 }
 
@@ -48,8 +102,8 @@ __device__ __forceinline__ void store_out(T* p, const float* v, int left) {
 // so marching p upwards adds each output's taps in kd → kh → kw order.
 template <typename T, bool kTail>
 __global__ void __launch_bounds__(256) dwconv3_kernel(
-    const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
-    int B, int D, int H, int W, int C, int chunks_per_block) {
+    const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+    T* __restrict__ y, int B, int D, int H, int W, int C, int chunks_per_block) {
   extern __shared__ __align__(16) float wsm[];
   const int cc = chunks_per_block;
   const int chunk0 = blockIdx.y * cc;
@@ -74,6 +128,9 @@ __global__ void __launch_bounds__(256) dwconv3_kernel(
   const T* xb = x + (long long)bi * D * plane + c0;
   T* yb = y + (long long)bi * D * plane + ((long long)hi * W) * C + c0;
   const float* wl = wsm + lc * 8;  // tap t of this thread's channels: wl + t·cc·8
+  float bs[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) bs[i] = bias != nullptr && c0 + i < C ? bias[c0 + i] : 0.f;
 
   // acc_lo: output p − 1 (gets kd = 2), acc_mid: output p (kd = 1),
   // acc_hi: output p + 1 (kd = 0)
@@ -129,7 +186,8 @@ __global__ void __launch_bounds__(256) dwconv3_kernel(
       T* out = yb + (long long)(pd - 1) * plane;
 #pragma unroll
       for (int o = 0; o < kOutW; ++o)
-        if (w0 + o < W) store_out<T, kTail>(out + (long long)(w0 + o) * C, acc_lo[o], C - c0);
+        if (w0 + o < W)
+          store_out<T, kTail>(out + (long long)(w0 + o) * C, acc_lo[o], bs, C - c0);
     }
 #pragma unroll
     for (int o = 0; o < kOutW; ++o)
@@ -144,7 +202,7 @@ __global__ void __launch_bounds__(256) dwconv3_kernel(
   T* out = yb + (long long)(D - 1) * plane;
 #pragma unroll
   for (int o = 0; o < kOutW; ++o)
-    if (w0 + o < W) store_out<T, kTail>(out + (long long)(w0 + o) * C, acc_lo[o], C - c0);
+    if (w0 + o < W) store_out<T, kTail>(out + (long long)(w0 + o) * C, acc_lo[o], bs, C - c0);
 }
 
 // Channel chunks per block: 4 where they divide, so a warp spans 4 chunks ×
@@ -154,8 +212,8 @@ int pick_chunks(int chunks) {
 }
 
 template <typename T, bool kTail>
-cudaError_t launch(const void* x, const float* w, void* y, int B, int D,
-                   int H, int W, int C, cudaStream_t stream) {
+cudaError_t launch_vector(const void* x, const float* w, const float* bias, void* y, int B,
+                          int D, int H, int W, int C, cudaStream_t stream) {
   const int chunks = (C + 7) / 8;
   const int cc = pick_chunks(chunks);
   const int per_block = 256 / cc;
@@ -165,28 +223,292 @@ cudaError_t launch(const void* x, const float* w, void* y, int B, int D,
   const size_t smem = (size_t)27 * cc * 8 * sizeof(float);
   dim3 grid((unsigned)blocks, chunks / cc);
   dwconv3_kernel<T, kTail><<<grid, per_block * cc, smem, stream>>>(
-      static_cast<const T*>(x), w, static_cast<T*>(y), B, D, H, W, C, cc);
+      static_cast<const T*>(x), w, bias, static_cast<T*>(y), B, D, H, W, C, cc);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tma_ring design (see the header).
+
+// A tile is kHT × WT output voxels × 64·(16 / WT) channels: WT = 16, or 8
+// for volumes at most 8 wide, where the second half of the warps takes a
+// second 64-channel group instead of voxels past W.
+constexpr int kHT = 8;                           // output voxels of a tile along H
+constexpr int kHR = 2, kWR = 8;                  // output voxels of a warp (H, W)
+constexpr int kWarps = 8;                        // 2 per scheduler: ≤ 255 registers
+constexpr int kStages = 4;                       // input planes in the ring
+
+template <int WT>
+struct Tile {
+  static constexpr int kGroups = 16 / WT;                          // 64-channel groups
+  static constexpr int kCT = 64 * kGroups;                         // channels
+  static constexpr int kRowBytes = kCT * 2;                        // one voxel, bf16
+  static constexpr int kStageBytes = (kHT + 2) * (WT + 2) * kRowBytes;  // one input box
+};
+
+struct RingPlan {
+  int B, D, H, W, C;
+  int th, tw, tc;         // tiles along H, W, C
+  long long items;        // tiles, each marched along all of D
+  int items_per_block;
+};
+
+struct Item {
+  int b, h0, w0, c0;
+};
+
+template <int WT>
+__device__ __forceinline__ Item decode(const RingPlan& q, long long i) {
+  Item it;
+  it.c0 = (int)(i % q.tc) * Tile<WT>::kCT;
+  i /= q.tc;
+  it.w0 = (int)(i % q.tw) * WT;
+  i /= q.tw;
+  it.h0 = (int)(i % q.th) * kHT;
+  it.b = (int)(i / q.th);
+  return it;
+}
+
+using Acc = float[3][kHR][kWR][2];
+
+// Round, pack and store accumulator set `S` of the warp's patch as output
+// plane `o` (voxels outside the volume and channels past C are skipped).
+template <int S>
+__device__ __forceinline__ void ring_store(const Acc& acc, __nv_bfloat16* y, const RingPlan& q,
+                                           const Item& it, int hp, int wp, int ch, int o) {
+  if (ch >= q.C) return;
+#pragma unroll
+  for (int r = 0; r < kHR; ++r) {
+    const int h = hp + r;
+    if (h >= q.H) break;
+    __nv_bfloat16* row = y + ((((long long)it.b * q.D + o) * q.H + h) * q.W + wp) * q.C + ch;
+#pragma unroll
+    for (int c = 0; c < kWR; ++c) {
+      if (wp + c < q.W) {
+        *reinterpret_cast<uint32_t*>(row + (long long)c * q.C) =
+            wft::pack_bf16(acc[S][r][c][0], acc[S][r][c][1]);
+      }
+    }
+  }
+}
+
+// One input plane into the three accumulator sets in flight. With J the
+// plane's index mod 3: set J % 3 holds output p − 1 (kd = 2), (J + 1) % 3
+// output p (kd = 1), (J + 2) % 3 output p + 1 (kd = 0), whose first tap adds
+// onto the bias. `src` is the stage's word of this lane at the patch's
+// first halo row and column.
+template <int WT, int J>
+__device__ __forceinline__ void ring_plane(Acc& acc, const uint8_t* src, const float2 (&tap)[27],
+                                           float2 bs) {
+  constexpr int LO = J % 3, MID = (J + 1) % 3, HI = (J + 2) % 3;
+  constexpr int kRow = Tile<WT>::kRowBytes;
+#pragma unroll
+  for (int hh = 0; hh < kHR + 2; ++hh) {
+    float2 v[kWR + 2];
+#pragma unroll
+    for (int c = 0; c < kWR + 2; ++c) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(src + (hh * (WT + 2) + c) * kRow);
+      v[c] = make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+    }
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const int r = hh - kh;  // the patch row this input row feeds through kh
+      if (r < 0 || r >= kHR) continue;
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const float2 t0 = tap[kh * 3 + kw], t1 = tap[9 + kh * 3 + kw], t2 = tap[18 + kh * 3 + kw];
+#pragma unroll
+        for (int c = 0; c < kWR; ++c) {
+          const float2 a = v[c + kw];
+          float* hi = acc[HI][r][c];
+          if (kh == 0 && kw == 0) {
+            hi[0] = fmaf(a.x, t0.x, bs.x);
+            hi[1] = fmaf(a.y, t0.y, bs.y);
+          } else {
+            hi[0] = fmaf(a.x, t0.x, hi[0]);
+            hi[1] = fmaf(a.y, t0.y, hi[1]);
+          }
+          acc[MID][r][c][0] = fmaf(a.x, t1.x, acc[MID][r][c][0]);
+          acc[MID][r][c][1] = fmaf(a.y, t1.y, acc[MID][r][c][1]);
+          acc[LO][r][c][0] = fmaf(a.x, t2.x, acc[LO][r][c][0]);
+          acc[LO][r][c][1] = fmaf(a.y, t2.y, acc[LO][r][c][1]);
+        }
+      }
+    }
+  }
+}
+
+// The block's input planes in order, issued by one thread (lane 0 of warp
+// 0): tile by tile, planes 0 … D − 1 of each.
+template <int WT>
+struct Producer {
+  long long i, i1;
+  Item it;
+  int p, n;  // the next plane, and the ring uses issued so far
+
+  __device__ void start(const RingPlan& q, long long i0, long long end) {
+    i = i0, i1 = end, n = 0;
+    if (i < i1) it = decode<WT>(q, i), p = 0;
+  }
+
+  // Issue the next plane (if any) into its stage, once the stage's previous
+  // plane has been freed by every warp.
+  __device__ void issue(const RingPlan& q, const CUtensorMap* map, uint8_t* smem, uint64_t* full,
+                        uint64_t* empty) {
+    if (i >= i1) return;
+    const int s = n % kStages;
+    if (n >= kStages) wft::mbar_wait_or_trap(empty + s, (n / kStages - 1) & 1);
+    wft::mbar_arrive_expect_tx(full + s, Tile<WT>::kStageBytes);
+    wft::tma_load_5d(smem + s * Tile<WT>::kStageBytes, map, full + s, it.c0, it.w0 - 1,
+                     it.h0 - 1, p, it.b);
+    ++n;
+    if (++p == q.D && ++i < i1) it = decode<WT>(q, i), p = 0;
+  }
+};
+
+template <int WT>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+    dwconv3_ring_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ w,
+                        const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                        RingPlan q) {
+  using T = Tile<WT>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - wft::smem_u32(smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * T::kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long i0 = (long long)blockIdx.x * q.items_per_block;
+  const long long i1 = min(i0 + q.items_per_block, q.items);
+  const bool producer = tid == 0;
+  Producer<WT> prod;
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      wft::mbar_init(full + s, 1);
+      wft::mbar_init(empty + s, kWarps);
+    }
+    wft::mbar_init_fence();
+    prod.start(q, i0, i1);
+    for (int s = 0; s < kStages; ++s) prod.issue(q, &xmap, smem, full, empty);
+  }
+  __syncthreads();
+
+  // warp → the 2 × 8 patch at (hr0, wr0) and the channel group g of each
+  // tile; warps w and w + 4 share a scheduler and take the two W halves (or
+  // channel groups)
+  const int hr0 = warp % (kHT / kHR) * kHR;
+  const int half = warp / (kHT / kHR);
+  const int wr0 = WT == 16 ? half * kWR : 0, g = WT == 16 ? 0 : half;
+  const uint8_t* lane_src = smem + (hr0 * (WT + 2) + wr0) * T::kRowBytes + g * 128 + lane * 4;
+  int n = 0;  // planes consumed
+  Acc acc;
+  for (long long i = i0; i < i1; ++i) {
+    const Item it = decode<WT>(q, i);
+    const int ch = it.c0 + g * 64 + 2 * lane;
+    const bool live = ch < q.C;
+    float2 tap[27];
+#pragma unroll
+    for (int t = 0; t < 27; ++t)
+      tap[t] = live ? *reinterpret_cast<const float2*>(w + (long long)t * q.C + ch)
+                    : make_float2(0.f, 0.f);
+    const float2 bs = live && bias != nullptr ? *reinterpret_cast<const float2*>(bias + ch)
+                                              : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int r = 0; r < kHR; ++r)
+#pragma unroll
+        for (int c = 0; c < kWR; ++c) acc[s][r][c][0] = bs.x, acc[s][r][c][1] = bs.y;
+    const int hp = it.h0 + hr0, wp = it.w0 + wr0;
+    // a patch outside the volume (or a channel group past C) only keeps the ring's count
+    const bool inside = hp < q.H && wp < q.W && it.c0 + g * 64 < q.C;
+    // one input plane p with accumulator roles J: refill the stage the
+    // previous plane used, wait for this one's, feed it in, free it, then
+    // store output p − 1 (complete now), and output p if p is the last
+    // plane of the volume
+    auto step = [&](auto j, int p) {
+      constexpr int J = decltype(j)::value;
+      if (producer && n > 0) prod.issue(q, &xmap, smem, full, empty);
+      const int s = n % kStages;
+      wft::mbar_wait_or_trap(full + s, (n / kStages) & 1);
+      if (inside) ring_plane<WT, J>(acc, lane_src + s * T::kStageBytes, tap, bs);
+      __syncwarp();
+      if (lane == 0) wft::mbar_arrive(empty + s);
+      ++n;
+      if (!inside) return;
+      if (p >= 1) ring_store<J % 3>(acc, y, q, it, hp, wp, ch, p - 1);
+      if (p == q.D - 1) ring_store<(J + 1) % 3>(acc, y, q, it, hp, wp, ch, p);
+    };
+    for (int p = 0;;) {
+      step(std::integral_constant<int, 0>(), p);
+      if (++p == q.D) break;
+      step(std::integral_constant<int, 1>(), p);
+      if (++p == q.D) break;
+      step(std::integral_constant<int, 2>(), p);
+      if (++p == q.D) break;
+    }
+  }
+}
+
+template <int WT>
+cudaError_t launch_ring(const void* x, const float* w, const float* bias, void* y, int B, int D,
+                        int H, int W, int C, cudaStream_t stream) {
+  using T = Tile<WT>;
+  RingPlan q{B, D, H, W, C};
+  q.th = (H + kHT - 1) / kHT;
+  q.tw = (W + WT - 1) / WT;
+  q.tc = (C + T::kCT - 1) / T::kCT;
+  CUtensorMap xmap;
+  const uint64_t dims[5] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)D, (uint64_t)B};
+  const uint64_t strides[4] = {(uint64_t)C * 2, (uint64_t)W * C * 2, (uint64_t)H * W * C * 2,
+                               (uint64_t)D * H * W * C * 2};
+  const uint32_t box[5] = {T::kCT, WT + 2, kHT + 2, 1, 1};
+  cudaError_t err = wft::make_map_bf16(&xmap, x, 5, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  const size_t smem = 1024 + kStages * T::kStageBytes + 2 * kStages * 8;
+  err = cudaFuncSetAttribute(dwconv3_ring_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dwconv3_ring_kernel<WT>,
+                                                      kWarps * 32, smem);
+  if (err != cudaSuccess) return err;
+  const long long slots = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  q.items = (long long)B * q.th * q.tw * q.tc;
+  const long long per = (q.items + slots - 1) / slots;
+  if (per > 0x7fffffffLL) return cudaErrorInvalidValue;
+  q.items_per_block = (int)per;
+  const long long blocks = (q.items + per - 1) / per;
+  dwconv3_ring_kernel<WT><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
+      xmap, w, bias, static_cast<__nv_bfloat16*>(y), q);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success).
-extern "C" int wft_dwconv3(int dtype, const void* x, const void* w, void* y,
+// The design wft_dwconv3 launches for these arguments: 0 = vector, 1 = tma_ring.
+extern "C" int wft_dwconv3_design(int dtype, int c) { return design_of(dtype, c); }
+
+// Returns a cudaError_t (0 on success). `bias` may be null. For the tma_ring
+// design x must be 16-byte aligned, as the vector design needs at C % 8 == 0.
+extern "C" int wft_dwconv3(int dtype, const void* x, const void* w, const void* bias, void* y,
                            int B, int D, int H, int W, int C, void* stream) {
   if (C < 1 || B < 1 || D < 1 || H < 1 || W < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
   const bool tail = C % 8 != 0;
   if (dtype == wft::kFloat32) {
-    return (int)(tail ? launch<float, true>(x, wf, y, B, D, H, W, C, s)
-                      : launch<float, false>(x, wf, y, B, D, H, W, C, s));
+    return (int)(tail ? launch_vector<float, true>(x, wf, bf, y, B, D, H, W, C, s)
+                      : launch_vector<float, false>(x, wf, bf, y, B, D, H, W, C, s));
   }
   if (dtype == wft::kBFloat16) {
-    return (int)(tail ? launch<__nv_bfloat16, true>(x, wf, y, B, D, H, W, C, s)
-                      : launch<__nv_bfloat16, false>(x, wf, y, B, D, H, W, C, s));
+    if (design_of(dtype, C) == kTmaRing) {
+      return (int)(W <= 8 ? launch_ring<8>(x, wf, bf, y, B, D, H, W, C, s)
+                          : launch_ring<16>(x, wf, bf, y, B, D, H, W, C, s));
+    }
+    return (int)launch_vector<__nv_bfloat16, true>(x, wf, bf, y, B, D, H, W, C, s);
   }
   return (int)cudaErrorInvalidValue;
 }

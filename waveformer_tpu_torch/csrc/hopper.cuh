@@ -117,6 +117,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that stops the kernel with a trap (a launch error on the host)
+// instead of hanging the card if a phase never completes, e.g. when a TMA
+// load never lands; about 10 s at the H100's clock.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
 // Bulk tensor copies of one box into shared memory; completion is counted in
 // bytes on `bar`. Coordinates are elements, innermost first, and may lie
 // outside the tensor (zero fill).

@@ -322,25 +322,7 @@ struct TmaPlan {
   int items_per_block;  // (head, query tile, window) items per block
 };
 
-// mbar_wait that stops the kernel with a trap (a launch error on the host)
-// instead of hanging the card if a phase never completes, e.g. when a TMA
-// load never lands; about 10 s at the H100's clock.
-__device__ __forceinline__ void wait_or_trap(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = wft::smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > 20000000000LL) __trap();
-  }
-}
+using wft::mbar_wait_or_trap;
 
 // ex2.approx: 2^x on the special-function unit (−∞ → +0)
 __device__ __forceinline__ float ex2(float x) {
@@ -447,7 +429,7 @@ __global__ void __launch_bounds__(tma_threads<D>(), 1)
             const int w = wbeg + i + c;
             if (kt == 0) {
               const int qs = qc[c] % kQSlots;
-              if (qc[c] >= kQSlots) wait_or_trap(qempty(c, qs), (qc[c] / kQSlots - 1) & 1);
+              if (qc[c] >= kQSlots) mbar_wait_or_trap(qempty(c, qs), (qc[c] / kQSlots - 1) & 1);
               wft::mbar_arrive_expect_tx(qfull(c, qs), t.q_bytes);
 #pragma unroll
               for (int ch = 0; ch < CH; ++ch) {
@@ -457,7 +439,7 @@ __global__ void __launch_bounds__(tma_threads<D>(), 1)
               ++qc[c];
             }
             const int slot = tc[c] % S;
-            if (tc[c] >= S) wait_or_trap(empty(c, slot), (tc[c] / S - 1) & 1);
+            if (tc[c] >= S) mbar_wait_or_trap(empty(c, slot), (tc[c] / S - 1) & 1);
             wft::mbar_arrive_expect_tx(full(c, slot), t.kv_bytes);
             uint8_t* st = kv_stage(c, slot);
 #pragma unroll
@@ -502,7 +484,7 @@ __global__ void __launch_bounds__(tma_threads<D>(), 1)
     for (int i = c; i < nwin; i += kConsumers) {
       const int w = wbeg + i;
       const int qs = qc % kQSlots;
-      wait_or_trap(qfull(c, qs), (qc / kQSlots) & 1);
+      mbar_wait_or_trap(qfull(c, qs), (qc / kQSlots) & 1);
       const uint32_t q_addr = wft::smem_u32(q_slot(c, qs));
       float o[D / 2];
 #pragma unroll
@@ -511,7 +493,7 @@ __global__ void __launch_bounds__(tma_threads<D>(), 1)
 
       for (int kt = 0; kt < ntiles; ++kt) {
         const int slot = tc % S;
-        wait_or_trap(full(c, slot), (tc / S) & 1);
+        mbar_wait_or_trap(full(c, slot), (tc / S) & 1);
         const uint32_t k_addr = wft::smem_u32(kv_stage(c, slot));
         const uint32_t v_addr = k_addr + CH * kBox;
 

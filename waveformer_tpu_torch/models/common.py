@@ -97,7 +97,8 @@ class ConvCL(nn.Conv3d):
     (B, D, H, W, C) input, returning channels-last output.
 
     A 1³ stride-1 conv is a matmul over channels; a depthwise 3³ stride-1
-    conv with padding 1 is the stencil kernel (plus bias); anything else is
+    conv with padding 1 is the stencil kernel, whose epilogue adds the bias
+    (on the CPU the plain stencil plus the bias); anything else is
     `F.conv3d` on the channels-first view."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,8 +113,7 @@ class ConvCL(nn.Conv3d):
             and self.groups == c == self.out_channels
         ):
             kernel = self.weight[:, 0].permute(1, 2, 3, 0)  # (3, 3, 3, C)
-            out = dwconv3(x, kernel)
-            return out if self.bias is None else out + self.bias
+            return dwconv3(x, kernel, self.bias)
         return to_cl(super().forward(to_cf(x)))
 
 

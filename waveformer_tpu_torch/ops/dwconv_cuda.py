@@ -3,10 +3,16 @@
 Port of `waveformer_tpu/ops/dwconv_pallas.py::dwconv3`. The kernel is
 `csrc/dwconv3.cu` (see its header for the design). The interface is the
 JAX one: x (B, D, H, W, C) channels-last, kernel (3, 3, 3, C); stride 1,
-zero padding 1, fp32 accumulation, no bias (the caller adds it).
+zero padding 1, fp32 accumulation. New beside it: an optional bias (C,),
+added in fp32 before the one rounding to x's dtype (the JAX model adds the
+conv bias right after the stencil; here it is the kernel's epilogue).
 
 On a CPU tensor the wrapper runs `dwconv3_reference`; on a CUDA tensor it
-launches the kernel or raises. The backward is the plain grouped conv.
+launches the kernel or raises. Which of the kernel's two designs runs
+depends on the dtype and C only (`design`): bf16 with C % 8 == 0 on the TMA
+plane ring, the rest (fp32, C % 8 != 0) on the vector kernel.
+`design_launches` counts the launches of each. The backward is the plain
+grouped conv.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # per-launch counter, read by chip_smoke.py to prove the main path ran here
 launches = 0
+# the kernel's designs, by the number `wft_dwconv3_design` returns, and the
+# launches of each
+DESIGNS = ("vector", "tma_ring")
+design_launches = {name: 0 for name in DESIGNS}
 
 
 def supported(c: int) -> bool:
@@ -30,62 +40,94 @@ def supported(c: int) -> bool:
     return c > 0
 
 
-def dwconv3_reference(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """`F.conv3d(groups=C)` on the channels-first view of `x`."""
+def design(dtype: torch.dtype, c: int) -> str:
+    """The design `csrc/dwconv3.cu` launches for these arguments (its
+    `wft_dwconv3_design`): bf16 with C % 8 == 0 (a W stride of whole 16
+    bytes, as TMA needs) on the TMA plane ring, everything else on the
+    vector kernel."""
+    return "tma_ring" if dtype == torch.bfloat16 and c % 8 == 0 else "vector"
+
+
+def dwconv3_reference(x: torch.Tensor, kernel: torch.Tensor,
+                      bias: torch.Tensor = None) -> torch.Tensor:
+    """`F.conv3d(groups=C)` on the channels-first view of `x`, then `bias`
+    (in x's dtype) added to the result."""
     c = x.shape[-1]
     w = kernel.permute(3, 0, 1, 2).unsqueeze(1).to(x.dtype)  # (C, 1, 3, 3, 3)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1, groups=c)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    y = y.permute(0, 2, 3, 4, 1).contiguous()
+    return y if bias is None else y + bias.to(y.dtype)
 
 
-def _launch(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     global launches
     b, d, h, w, c = x.shape
     if not supported(c):
         raise ValueError(f"dwconv3 kernel needs C > 0, got C={c}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"dwconv3 kernel takes fp32/bf16, got {x.dtype}")
-    if kernel.shape != (3, 3, 3, c):
-        raise ValueError(f"dwconv3 kernel shape {tuple(kernel.shape)} != (3,3,3,{c})")
-    if not (x.is_cuda and kernel.is_cuda):
+    if not (x.is_cuda and kernel.is_cuda and (bias is None or bias.is_cuda)):
         raise ValueError("dwconv3: inputs must be CUDA tensors")
     x = _build.aligned16(x)
-    wts = kernel.to(torch.float32).contiguous()
+    wts = _build.aligned16(kernel.to(torch.float32))
+    bf = None if bias is None else _build.aligned16(bias.to(torch.float32))
     out = torch.empty_like(x)
     fn = _build.LIBRARIES.get("dwconv3").wft_dwconv3
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p]
-    )
+    if fn.argtypes is None:  # once per loaded library
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p]
+        )
     err = fn(
-        _DTYPES[x.dtype], x.data_ptr(), wts.data_ptr(), out.data_ptr(),
+        _DTYPES[x.dtype], x.data_ptr(), wts.data_ptr(),
+        None if bf is None else bf.data_ptr(), out.data_ptr(),
         b, d, h, w, c, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "dwconv3 launch")
+    name = design(x.dtype, c)
+    _build.check(err, f"dwconv3 launch ({name})")
     launches += 1
+    design_launches[name] += 1
     return out
+
+
+def library_design(dtype: torch.dtype, c: int) -> str:
+    """`wft_dwconv3_design` of the built library (the rule that `design`
+    restates); needs nvcc."""
+    fn = _build.LIBRARIES.get("dwconv3").wft_dwconv3_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2
+    return DESIGNS[fn(_DTYPES[dtype], c)]
 
 
 class _DWConv3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kernel):
-        ctx.save_for_backward(x, kernel)
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel, bias)
         if x.device.type == "cpu":
-            return dwconv3_reference(x, kernel)
-        return _launch(x, kernel)
+            return dwconv3_reference(x, kernel, bias)
+        return _launch(x, kernel, bias)
 
     @staticmethod
     def backward(ctx, g):
-        x, kernel = ctx.saved_tensors
+        x, kernel, bias = ctx.saved_tensors
         with torch.enable_grad():
             xi = x.detach().requires_grad_(True)
             ki = kernel.detach().requires_grad_(True)
-            out = dwconv3_reference(xi, ki)
-            gx, gk = torch.autograd.grad(out, (xi, ki), g.to(out.dtype))
-        return gx, gk.to(kernel.dtype)
+            bi = None if bias is None else bias.detach().requires_grad_(True)
+            out = dwconv3_reference(xi, ki, bi)
+            ins = (xi, ki) if bi is None else (xi, ki, bi)
+            grads = torch.autograd.grad(out, ins, g.to(out.dtype))
+        gb = None if bias is None else grads[2].to(bias.dtype)
+        return grads[0], grads[1].to(kernel.dtype), gb
 
 
-def dwconv3(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Depthwise 3³ conv of channels-last `x` with `kernel` (3, 3, 3, C)."""
-    return _DWConv3.apply(x, kernel)
+def dwconv3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor = None) -> torch.Tensor:
+    """Depthwise 3³ conv of channels-last `x` with `kernel` (3, 3, 3, C),
+    plus `bias` (C,) if given; the result has x's dtype."""
+    c = x.shape[-1]
+    if tuple(kernel.shape) != (3, 3, 3, c):
+        raise ValueError(f"dwconv3 kernel shape {tuple(kernel.shape)} != (3,3,3,{c})")
+    if bias is not None and tuple(bias.shape) != (c,):
+        raise ValueError(f"dwconv3 bias shape {tuple(bias.shape)} != ({c},)")
+    return _DWConv3.apply(x, kernel, bias)

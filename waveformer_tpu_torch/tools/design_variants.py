@@ -1,9 +1,9 @@
 """Time design variants of a hand-written kernel against the committed source.
 
-    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3|window_attention] [--iters 32]
+    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3|window_attention|dwconv3] [--iters 32]
 
 A variant is the committed `csrc/<kernel>.cu` with a few text substitutions
-(tile sizes, ring depth, warpgroups, the exponential), listed in `VARIANTS`. Each is built
+(tile sizes, ring depth, warpgroups, the exponential, D segments), listed in `VARIANTS`. Each is built
 with the port's nvcc flags into `_build/variants/`, then swapped in for the
 committed library, so the public wrappers run it unchanged: every variant
 is first held against the plain version, then timed with CUDA events at the
@@ -25,6 +25,7 @@ import torch
 
 from waveformer_tpu_torch.ops import _build
 from waveformer_tpu_torch.ops import conv_cuda
+from waveformer_tpu_torch.ops import dwconv_cuda
 from waveformer_tpu_torch.ops import tiled_matmul_cuda as tm
 from waveformer_tpu_torch.ops.attention_cuda import window_attention, window_attention_reference
 from waveformer_tpu_torch.utils.profiling import device_time
@@ -45,6 +46,36 @@ __device__ __forceinline__ float exp2_fma(float x) {
 }
 
 // ex2.approx: 2^x on the special-function unit (−∞ → +0)"""
+
+
+def _dw_segments(per_block: int) -> List[Tuple[str, str]]:
+    """dwconv3.cu with each tile's D cut into segments wherever the tiles
+    alone give a block fewer than `per_block` items (balance across SMs;
+    each segment re-reads its two halo planes)."""
+    return [
+        ("  long long items;", "  int seg_len, nseg;\n  long long items;"),
+        ("struct Item {\n  int b, h0, w0, c0;\n};",
+         "struct Item {\n  int b, h0, w0, c0, d0, d1, p0, p1;\n};"),
+        ("  Item it;\n  it.c0 = (int)(i % q.tc)",
+         "  Item it;\n  const int seg = (int)(i % q.nseg);\n  i /= q.nseg;\n"
+         "  it.d0 = seg * q.seg_len, it.d1 = min(it.d0 + q.seg_len, q.D);\n"
+         "  it.p0 = max(it.d0 - 1, 0), it.p1 = min(it.d1, q.D - 1);\n"
+         "  it.c0 = (int)(i % q.tc)"),
+        ("decode<WT>(q, i), p = 0;", "decode<WT>(q, i), p = it.p0;"),
+        ("if (++p == q.D && ++i < i1)", "if (++p > it.p1 && ++i < i1)"),
+        ("    for (int p = 0;;) {", "    for (int p = it.p0;;) {"),
+        ("if (++p == q.D) break;", "if (++p > it.p1) break;"),
+        ("      if (p >= 1) ring_store", "      if (p - 1 >= it.d0) ring_store"),
+        ("if (p == q.D - 1) ring_store", "if (p == q.D - 1 && it.d1 == q.D) ring_store"),
+        ("  q.items = (long long)B * q.th * q.tw * q.tc;\n",
+         "  const long long tiles = (long long)B * q.th * q.tw * q.tc;\n"
+         f"  long long nseg = tiles < {per_block} * slots ? ({per_block} * slots + tiles - 1) / tiles : 1;\n"
+         "  if (nseg > D) nseg = D;\n"
+         "  q.seg_len = (int)((D + nseg - 1) / nseg);\n"
+         "  q.nseg = (D + q.seg_len - 1) / q.seg_len;\n"
+         "  q.items = tiles * q.nseg;\n"),
+    ]
+
 
 # name → substitutions (old, new) on the committed source; the first is it
 VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
@@ -84,11 +115,19 @@ VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
             ("wft::wgmma_wait<1>();\n        if (s > 0 && mt == 0 && kh == 0)",
              "wft::wgmma_wait<2>();\n        if (s > 0 && mt == 0 && kh == 1)")],
     },
+    "dwconv3": {
+        "whole-D march per tile (committed)": [],
+        "D cut below 4 tiles per block (the first ring design)": _dw_segments(4),
+        "D cut below 8 tiles per block": _dw_segments(8),
+    },
 }
 # (M, K, N) of the int8 probe; (B, (D, H, W), C, O) of the flagship's DHCW convs;
 # (B·nW, H, N, D) of the flagship's attention calls
 MM_SHAPES = [(32768, 1024, 512), (16384, 2048, 512)]
 ATTN_SHAPES = [(512, 3, 512, 16), (64, 6, 512, 16), (8, 3, 512, 16)]
+# (B, D, H, W, C) of the flagship's depthwise convs (chip_smoke.DW_MAIN_SHAPES)
+DW_SHAPES = [(8, 64, 64, 64, 192), (8, 32, 32, 32, 384), (8, 16, 16, 16, 768),
+             (8, 8, 8, 8, 1536), (8, 64, 64, 64, 96)]
 CONV_SHAPES = [(8, (128,) * 3, 4, 48), (8, (128,) * 3, 96, 48), (8, (64,) * 3, 96, 48),
                (8, (32,) * 3, 192, 96), (8, (16,) * 3, 384, 192)]
 
@@ -193,6 +232,32 @@ def _attn_cases(iters: int):
         yield list(shape), check, time_it, {"unit": "ms"}
 
 
+def _dw_cases(iters: int):
+    for shape in DW_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(3, 3, 3, shape[-1], device="cuda", generator=g)
+        b = torch.randn(shape[-1], device="cuda", generator=g)
+
+        def check(x=x, w=w, b=b):
+            got = dwconv_cuda.dwconv3(x, w, b).float()
+            want = dwconv_cuda.dwconv3_reference(x.float(), w, b).to(torch.bfloat16).float()
+            return bool(((got - want).abs() <= 2e-2 + 1.6e-2 * want.abs()).all())
+
+        def time_it(x=x, w=w, b=b):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            dwconv_cuda.dwconv3(x, w, b)
+            torch.cuda._sleep(1_000_000 * iters)  # as for attention: device time
+            start.record()
+            for _ in range(iters):
+                dwconv_cuda.dwconv3(x, w, b)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+
+        yield list(shape), check, time_it, {"unit": "ms"}
+
+
 def run(kernel: str, iters: int) -> List[dict]:
     names = list(VARIANTS[kernel])
     libs = {n: build(kernel, n, VARIANTS[kernel][n]) for n in names}
@@ -201,7 +266,8 @@ def run(kernel: str, iters: int) -> List[dict]:
     rows = []
     cases = {"tiled_matmul": lambda: _mm_cases(iters),
              "conv3": lambda: _conv_cases(max(iters // 8, 3)),
-             "window_attention": lambda: _attn_cases(iters)}[kernel]()
+             "window_attention": lambda: _attn_cases(iters),
+             "dwconv3": lambda: _dw_cases(iters)}[kernel]()
     try:
         for shape, check, time_it, extra in cases:
             for n in names:
