@@ -26,10 +26,11 @@ Phases, each of which must pass:
      and all on the TMA plane ring);
   6. the dense 3³ conv kernel (`csrc/conv3.cu`) in its three forms (DHWC,
      DHCW, fused with the InstanceNorm prologue and statistics; bf16 DHCW on
-     the TMA + wgmma design, the others on mma.sync) against its
-     plain version at the 16 convs of the 8 res blocks of a batch-8 forward
-     and the JAX tests' shapes, fp32 and bf16, with `F.conv3d` (cuDNN) as
-     the library time;
+     the (D, H, C, W) TMA + wgmma design, bf16 DHWC with C % 8 == 0 on the
+     channels-last TMA + wgmma design, C = 4 on the mma.sync halo kernel)
+     against its plain version at the 16 convs of the 8 res blocks of a
+     batch-8 forward and the JAX tests' shapes, fp32 and bf16, with
+     `F.conv3d` (cuDNN) as the library time;
   7. the fused CCF-FFN tail (`csrc/ffn_tail.cu`) against its plain version
      at the 8 tails of a batch-8 forward and one odd shape;
   8. the conv-block path: one batch-8 128³ bf16 flagship forward with its 8
@@ -38,8 +39,10 @@ Phases, each of which must pass:
      plain conv kernel in both layouts (`res_block_reference`), and every
      FFN through the fused tail (`ffn_tail_module`), each against the
      module's own output; launches are counted over that run, the conv
-     kernel's also per design (the 16 (D, H, C, W) convs all on TMA +
-     wgmma), and each block's time on each path is printed;
+     kernel's also per design (the 16 (D, H, C, W) convs on the (D, H, C,
+     W) TMA design, the 30 channels-last ones with C % 8 == 0 on the
+     channels-last TMA design, the 2 with C = 4 on the halo kernel), and
+     each block's time on each path is printed;
   9. the int8 probe's path: the bf16 → fp32 (TMA + wgmma) and int8 → int32
      (mma.sync) tiled-matmul kernels (`csrc/tiled_matmul.cu`) against their
      plain version at the probe's shapes and odd ones, in all four (type,
@@ -47,7 +50,9 @@ Phases, each of which must pass:
      and three values of s[0] (int8 bit-equal), then the probe's entry point
      `waveformer_tpu_torch.tools.exp_int8_mxu.run` with exact launch counts
      and the kernels' times beside cuBLAS's.
-The last lines are a `{"kernels": [...]}` JSON line, the card line, and
+The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
+main-path call with the largest bound, with its worst ratio to its library
+call over the main-path shapes), the card line, and
 `{"ok": true, "device": {...}}`. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
 """
@@ -499,6 +504,9 @@ def check_conv(cc, fc):
                 rs[k].update({"kernel_ms": cuda_ms(kern, iters=5, warmup=1),
                               "plain_ms": cuda_ms(plain, iters=3, warmup=1),
                               "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
+            rs["conv3x3x3_same"]["design"] = rs["conv3x3x3_fused"]["design"] = cc.design(
+                torch.bfloat16, cc.DHWC, dhw[2], c)
+            rs["conv3x3x3_cw"]["design"] = cc.design(torch.bfloat16, cc.DHCW, dhw[2], c)
             del xx, x_cw, xcf
         for k, r in rs.items():
             log(json.dumps(r))
@@ -618,10 +626,12 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
               "conv3x3x3_cw": cc.launches["conv3x3x3_cw"] + cc.launches["conv3x3x3_same_v2"]}
     ok &= counts == {"conv3x3x3_fused": 16, "ffn_tail": 8, "conv3x3x3_same": 16,
                      "conv3x3x3_cw": 16}
-    # every conv3.cu launch by design: the fused and DHWC convs on the halo
-    # kernel, the 16 (D, H, C, W) convs on TMA + wgmma, none on the plain one
+    # every conv3.cu launch by design: the fused and DHWC convs with C % 8 ==
+    # 0 on the channels-last TMA kernel, the two with C = 4 (encoder1's
+    # first conv) on the halo kernel, the 16 (D, H, C, W) convs on the (D, H,
+    # C, W) TMA kernel, none on the plain one
     designs = dict(cc.design_launches)
-    ok &= designs == {"halo_mma": 32, "plain": 0, "tma_wgmma": 16}
+    ok &= designs == {"halo_mma": 2, "plain": 0, "tma_wgmma": 16, "tma_wgmma_cl": 30}
 
     # per-block times, after the counts are read
     with torch.inference_mode():
@@ -691,6 +701,17 @@ def check_tiled_matmul(tm):
     return ok, rows
 
 
+def worst_library(timed):
+    """The kernels line's worst ratio to the library call: the largest
+    kernel / library time over (kernel, library, shape) of the main-path
+    calls, with its shape (None where no call has a library time)."""
+    pairs = [(k / lib, shape) for k, lib, shape in timed if lib]
+    if not pairs:
+        return {"worst_library_ratio": None, "worst_library_shape": None}
+    ratio, shape = max(pairs, key=lambda t: t[0])
+    return {"worst_library_ratio": ratio, "worst_library_shape": shape}
+
+
 def run_int8_probe(tm, probe):
     """Phase 9, second half: the probe's entry point (`run`, 64 timed calls
     per shape and type), with exact launch counts, then the plain version's
@@ -706,6 +727,8 @@ def run_int8_probe(tm, probe):
         log(json.dumps(r))
     entries = []
     for kind in ("bf16", "int8"):
+        worst = worst_library((r["us"], r["library_us"], [r["M"], r["K"], r["N"]])
+                              for r in rows if r["dtype"] == kind)
         r = max((r for r in rows if r["dtype"] == kind), key=lambda r: r["bound_us"])
         s, x, w, out_dtype = tiled_matmul_inputs(kind, r["M"], r["K"], r["N"], 0.0, tm)
         plain_ms = cuda_ms(lambda: tm.tiled_matmul_reference(
@@ -716,7 +739,7 @@ def run_int8_probe(tm, probe):
                         "bound_by": r["bound_by"], "library_ms": r["library_us"] / 1e3,
                         "library_call": r["library_call"], "shape": [r["M"], r["K"], r["N"]],
                         "int8_speedup_kernel": r["int8_speedup_kernel"],
-                        "int8_speedup_library": r["int8_speedup_library"]})
+                        "int8_speedup_library": r["int8_speedup_library"], **worst})
         del x, w
     log(json.dumps({"check": "int8_probe", "launches": counts, "expected_per_kind": per_kind}))
     torch.cuda.empty_cache()
@@ -798,7 +821,8 @@ def main():
     def headline(rows, kname, source, replaces, **extra):
         # the main-path call with the largest bound; a bound set by the
         # exponentials is one of operations (special-function ones)
-        r = max((r for r in rows if "kernel_ms" in r), key=lambda r: r["bound_ms"])
+        timed = [r for r in rows if "kernel_ms" in r]
+        r = max(timed, key=lambda r: r["bound_ms"])
         by = {"bound_by": r["bound_by"]}
         if r["bound_by"] == "exponentials":
             by = {"bound_by": "operations", "bound_operations": "exp2"}
@@ -807,7 +831,9 @@ def main():
                 "max_abs_err": max(v for x in rows for k, v in x.items()
                                    if k.startswith("max_err_")),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                **by, "library_ms": r["library_ms"], "shape": r["shape"], **extra}
+                **by, "library_ms": r["library_ms"], "shape": r["shape"],
+                **worst_library((r["kernel_ms"], r["library_ms"], r["shape"]) for r in timed),
+                **extra}
 
     conv_src = "waveformer_tpu_torch/csrc/conv3.cu"
     cudnn = {"library_call": "F.conv3d, bf16, the conv alone (cuDNN)"}
@@ -821,7 +847,9 @@ def main():
                  "waveformer_tpu/ops/dwconv_pallas.py:32",
                  design=dc.design(torch.bfloat16, DW_MAIN_SHAPES[0][-1])),
         headline(results["conv3x3x3_same"], "conv3x3x3_same", conv_src,
-                 "waveformer_tpu/ops/conv_pallas.py:51", **cudnn),
+                 "waveformer_tpu/ops/conv_pallas.py:51",
+                 design=cc.design(torch.bfloat16, cc.DHWC, CONV_MAIN_SHAPES[2][1][2],
+                                  CONV_MAIN_SHAPES[2][2]), **cudnn),
         headline(results["conv3x3x3_cw"], "conv3x3x3_cw", conv_src,
                  "waveformer_tpu/ops/conv_pallas.py:154",
                  design=cc.design(torch.bfloat16, cc.DHCW, CONV_MAIN_SHAPES[2][1][2],
@@ -829,7 +857,9 @@ def main():
         headline(results["ffn_tail"], "ffn_tail", "waveformer_tpu_torch/csrc/ffn_tail.cu",
                  "tools/exp_ffn_pallas.py:149"),
         headline(results["conv3x3x3_fused"], "conv3x3x3_fused", conv_src,
-                 "tools/exp_fused_conv.py:120", **cudnn),
+                 "tools/exp_fused_conv.py:120",
+                 design=cc.design(torch.bfloat16, cc.DHWC, CONV_MAIN_SHAPES[2][1][2],
+                                  CONV_MAIN_SHAPES[2][2]), **cudnn),
         *({"route": "cuda", "source": "waveformer_tpu_torch/csrc/tiled_matmul.cu",
            "replaces": "tools/exp_int8_mxu.py:26", "launches": launches[e["name"]],
            "max_abs_err": max(v for r in results["tiled_matmul"] if r["kernel"] == e["name"]

@@ -13,12 +13,15 @@ order, and the tensor cores do not round their fp32 sums to nearest: 1e-4 of
 Σ|x'||w| + |s0|.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from waveformer_tpu_torch.models.conv_blocks import UnetResBlock
 from waveformer_tpu_torch.models.layers import CCF_FFN
+from waveformer_tpu_torch.ops import _build
 from waveformer_tpu_torch.ops import attention_cuda as tac
 from waveformer_tpu_torch.ops import conv_cuda as tcc
 from waveformer_tpu_torch.ops import dwconv_cuda as tdc
@@ -356,12 +359,16 @@ class TestConvTmaOnCard:
 
     def test_design_rule(self, cuda_device):
         bf, f32 = torch.bfloat16, torch.float32
+        # the Python rule is the library's, over every dtype, layout, W and C
+        for dt in (bf, f32):
+            for layout in (tcc.DHWC, tcc.DHCW):
+                for w_extent in (7, 8, 16, 128):
+                    for c in (3, 4, 6, 8, 24, 48, 96):
+                        assert tcc.design(dt, layout, w_extent, c) == tcc.library_design(
+                            dt, layout, w_extent, c), (dt, layout, w_extent, c)
         assert tcc.design(bf, tcc.DHCW, 128, 96) == "tma_wgmma"
-        assert tcc.design(bf, tcc.DHCW, 16, 4) == "tma_wgmma"
-        assert tcc.design(bf, tcc.DHCW, 7, 48) == "plain"
-        assert tcc.design(f32, tcc.DHCW, 128, 48) == "plain"
-        assert tcc.design(bf, tcc.DHWC, 128, 48) == "halo_mma"
-        assert tcc.design(bf, tcc.DHWC, 16, 6) == "plain"
+        assert tcc.design(bf, tcc.DHWC, 128, 48) == "tma_wgmma_cl"
+        assert tcc.design(bf, tcc.DHWC, 128, 4) == "halo_mma"
         # W % 8 != 0 runs the plain kernel, and matches
         x, w = _conv_inputs((2, 3, 4, 7), 48, 48, cuda_device)
         x_cw = x.to(bf).transpose(-1, -2).contiguous()
@@ -372,6 +379,108 @@ class TestConvTmaOnCard:
         assert tcc.design_launches["tma_wgmma"] == before["tma_wgmma"]
         torch.testing.assert_close(got.float(), tcc.conv3x3x3_cw_reference(x_cw, w).float(),
                                    rtol=1.6e-2, atol=2e-2)
+
+
+# bf16 channels-last with C % 8 == 0 on the TMA + wgmma design: (B, D, H, W)
+# with H and W that no tile divides, W < 8, W = 16; C = 24 leaves the second
+# 16-channel chunk half empty
+CL_SHAPES = [(2, 3, 9, 13), (1, 4, 5, 6), (2, 3, 16, 16)]
+CL_C, CL_O = [8, 24, 48], [8, 40, 48, 96, 192]
+
+
+def _cl_prologue(b, c, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(b, c, device=device, generator=g) * 0.5,
+            torch.rand(b, c, device=device, generator=g) + 0.5)
+
+
+@pytest.mark.cuda
+class TestConvChannelsLastTmaOnCard:
+    def _run(self, device, bdhw, c, o, prologue, act, stats):
+        x, w = _conv_inputs(bdhw, c, o, device, seed=4)
+        x = x.to(torch.bfloat16)
+        pro = _cl_prologue(bdhw[0], c, device) if prologue else None
+        before = dict(tcc.design_launches)
+        got = tfc.conv3x3x3_fused(x, w, prologue=pro, emit_stats=stats, act=act)
+        want = tfc.conv3x3x3_fused_reference(x, w, prologue=pro, emit_stats=stats, act=act)
+        torch.cuda.synchronize()
+        # one launch, on this design
+        assert tcc.design_launches == {
+            k: v + (k == "tma_wgmma_cl") for k, v in before.items()}
+        y, wy = (got[0], want[0]) if stats else (got, want)
+        assert y.dtype == torch.bfloat16 and y.shape == wy.shape
+        torch.testing.assert_close(y.float(), wy.float(), rtol=1.6e-2, atol=2e-2)
+        if stats:
+            st, wst = got[1], want[1]
+            torch.testing.assert_close(st, wst, rtol=1e-4, atol=1e-4 * float(wst.abs().max()))
+        return got
+
+    @pytest.mark.parametrize("o", CL_O)
+    @pytest.mark.parametrize("c", CL_C)
+    @pytest.mark.parametrize("bdhw", CL_SHAPES)
+    def test_matches_plain(self, cuda_device, bdhw, c, o):
+        x, w = _conv_inputs(bdhw, c, o, cuda_device)
+        x = x.to(torch.bfloat16)
+        before = tcc.design_launches["tma_wgmma_cl"]
+        got = tcc.conv3x3x3_batched(x, w, block_h=bdhw[2])
+        torch.cuda.synchronize()
+        assert tcc.design_launches["tma_wgmma_cl"] == before + 1
+        torch.testing.assert_close(got.float(), tcc.conv3x3x3_reference(x, w).float(),
+                                   rtol=1.6e-2, atol=2e-2)
+        self._run(cuda_device, bdhw, c, o, prologue=True, act=True, stats=True)
+
+    @pytest.mark.parametrize("stats", [False, True])
+    @pytest.mark.parametrize("act", [False, True])
+    @pytest.mark.parametrize("prologue", [False, True])
+    def test_prologue_and_statistics_options(self, cuda_device, prologue, act, stats):
+        self._run(cuda_device, (2, 3, 9, 13), 24, 40, prologue, act, stats)
+
+    def test_statistics_bit_identical(self, cuda_device):
+        x, w = _conv_inputs((2, 4, 16, 16), 48, 48, cuda_device, seed=5)
+        x = x.to(torch.bfloat16)
+        pro = _cl_prologue(2, 48, cuda_device)
+        y, st = tfc.conv3x3x3_fused(x, w, prologue=pro, emit_stats=True)
+        y2, st2 = tfc.conv3x3x3_fused(x, w, prologue=pro, emit_stats=True)
+        torch.cuda.synchronize()
+        assert torch.equal(st, st2) and torch.equal(y, y2)
+
+    def test_prologue_keeps_the_halo_zero(self, cuda_device):
+        # a constant input normalised to exactly 0 inside the volume gives 0
+        # everywhere only if the padded border is also 0 after normalisation
+        x = torch.full((1, 3, 9, 13, 8), 2.0, device=cuda_device, dtype=torch.bfloat16)
+        w = torch.ones(3, 3, 3, 8, 16, device=cuda_device)
+        pro = (torch.full((1, 8), 2.0, device=cuda_device), torch.ones(1, 8, device=cuda_device))
+        before = tcc.design_launches["tma_wgmma_cl"]
+        y = tfc.conv3x3x3_fused(x, w, prologue=pro, act=False)
+        torch.cuda.synchronize()
+        assert tcc.design_launches["tma_wgmma_cl"] == before + 1
+        assert float(y.abs().max()) == 0.0
+
+    @pytest.mark.parametrize("kh,kw", [(kh, kw) for kh in range(3) for kw in range(3)])
+    def test_tap_shifted_product(self, cuda_device, kh, kw):
+        # one m64n16k16 wgmma with A at a tap's offset into a [10][18][16]
+        # halo (32-byte voxel rows, 32-byte swizzle) and B from the per-tap
+        # packing
+        rows, row_cells, cell0 = 10, 18, 8  # M tile (0, 1) of an 8 × 16 block
+        rng = np.random.default_rng(kh * 3 + kw)
+        halo = rng.standard_normal((rows, row_cells, 16)).astype(np.float32)
+        wt = rng.standard_normal((16, 16)).astype(np.float32)  # [n][k]
+        halo_t = torch.from_numpy(halo).to(cuda_device, torch.bfloat16).contiguous()
+        wt_t = torch.from_numpy(wt).to(cuda_device, torch.bfloat16).contiguous()
+        out = torch.empty(64, 16, device=cuda_device)
+        cell = cell0 + kh * row_cells + kw
+        fn = _build.LIBRARIES.get("conv3").wft_conv3_cl_probe
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        err = fn(halo_t.data_ptr(), wt_t.data_ptr(), out.data_ptr(), rows, row_cells, cell,
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "conv3 tap probe")
+        torch.cuda.synchronize()
+        # row m = 8r + c reads cell (r + kh, c + kw) of the tile, all 16 channels
+        cells = halo_t.float().cpu().numpy().reshape(-1, 16)
+        a = np.stack([cells[cell + r * row_cells + c] for r in range(8) for c in range(8)])
+        want = a @ wt_t.float().cpu().numpy().T
+        np.testing.assert_allclose(out.cpu().numpy(), want, rtol=1e-5, atol=1e-4)
 
 
 # (M, K, N): a ragged row block with N % 16 == 8, a K tail of half a stage,

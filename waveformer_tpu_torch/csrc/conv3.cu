@@ -13,11 +13,54 @@
 //
 // What bounds it: operations. At (8, 128³, 48 → 48) bf16 the product is
 // 2.09 TFLOP (2.1 ms at the bf16 tensor rate) against 1.6 GB of traffic
-// (0.5 ms); with C = 4 (the first encoder block) it is bytes. Three designs,
+// (0.5 ms); with C = 4 (the first encoder block) it is bytes. Four designs,
 // chosen from the dtype, the layout and the shape only (`design_of`,
 // queried by `wft_conv3_design`):
 //
-// `conv3_halo_kernel` (bf16, DHWC, C % 4 == 0: every conv of the model): a
+// `conv3_cl_kernel` (bf16, DHWC, C % 8 == 0: every conv of the model but the
+// first): an implicit GEMM with M = voxels, N = output channels, on wgmma
+// with both operands in shared memory. A block owns one output plane × th
+// h-rows × tw w-columns (2·MT M tiles of 8 × 8 voxels, arranged to pad the
+// plane least: 16 × 32 at BN ≤ 48, 16 × 16 at BN = 64 or 96) × BN output
+// channels (O rounded up to 8 up to 48, else 64 or 96; 192 → 2 × 96) and
+// walks K in stages of (kd, 16 input channels). One producer thread loads
+// each stage with TMA into a ring of 2-4 stages tracked by full/empty
+// mbarriers: the nine (kh, kw) taps' weights of that (kd, chunk) from the
+// per-tap packing (32-byte swizzle), and one box {16 channels, tw + 2, th +
+// 2} of the map over x as (C, W, H, D, B) at (c0, w0 − 1, h0 − 1, d + kd −
+// 1, b), also 32-byte swizzled. W is an outer dimension there, so the start
+// −1 is legal, and TMA's zero fill outside the volume and past C is the SAME
+// padding. The halo lands as [th + 2][tw + 2][16 channels]: one 32-byte row
+// per voxel, which is a row of the 32-byte-swizzled K-major layout of a
+// wgmma operand, so 8 w-neighbours are one 8-row atom and the next h-row's
+// are (tw + 2)·32 bytes on (sbo). Tap (kh, kw) of an M tile is then the same
+// descriptor moved by (kh·(tw + 2) + kw)·32 bytes: the swizzle follows the
+// address bits, as TMA wrote them, so any 32-byte step is legal (a card test
+// holds it). A is read straight from the halo, with no ldmatrix and no
+// shuffles, and each input element leaves L2 about 1.2 times a stage instead
+// of 9. (Two boxes of 8 channels, 16-byte rows, unswizzled, gave the same
+// product with twice the TMA requests: `design_variants --kernel
+// conv3_dhwc`.) Two consumer warpgroups each own MT (4 at BN ≤ 48, else 2) M
+// tiles and issue, per stage, one group of 9·MT wgmma.m64nBNk16, keeping the
+// previous stage's group in flight; the slot of stage s − 1 goes back to the
+// producer when that group is done. With the prologue on, the consumers
+// normalise stage s + 1's in-volume cells in place (z = (x − mean)·rstd,
+// LeakyReLU, one rounding to bf16) while the products of stage s run, each
+// thread always the same 8 channels of its cells (mean and rstd loaded once
+// a stage), then fence the generic-proxy writes before the async proxy's
+// reads and meet at a named barrier; cells outside the volume stay zero.
+// (Three separate normalising warps, to keep the prologue off the warps that
+// feed the tensor cores, were slower at every shape: at BN = 48 they fall
+// behind the products.) One fp32 accumulator holds all of K. Statistics: per
+// block, column sums of acc and acc² over its voxels inside the volume, in a
+// fixed order (a thread's rows, xor shuffles over the 8 lanes of a column,
+// the warps in order through shared memory), into the scratch array. The
+// bf16 tile is staged [voxel][n] in the ring and stored along C in 16-byte
+// vectors. At C = 4 a map's W stride (8 bytes) is no multiple of 16, which
+// TMA needs, so the flagship's first conv (128³·4 → 48) stays on the halo
+// kernel below: it moves bytes, not products, and beats cuDNN there.
+//
+// `conv3_halo_kernel` (bf16, DHWC, C % 4 == 0 otherwise): a
 // block of 8 warps owns one output plane × 8 h-rows × 32 w-columns (each warp
 // one row, two m16 tiles) × NT·8 output channels, and walks K in stages of
 // one kd × 16 input channels. A stage copies the block's 10 × 34 input halo
@@ -68,11 +111,12 @@
 // The mma.sync designs: the tensor cores' fp32 sums are not rounded to
 // nearest, so each chunk goes into a fresh fragment that is added to an IEEE
 // fp32 total (the error does not grow with K). The fp32 tile goes through shared
-// memory for the store and the statistics: each block writes its column
-// sums of acc and acc² (rows in order) to a scratch array, and a second
-// kernel adds the blocks of an instance in a fixed order, so two calls give
-// bit-identical statistics (no fp32 atomics). No padded copy of the input
-// goes to device memory (the TPU kernels' pads of W and C are TPU tiling).
+// memory for the store and the statistics. Every design with statistics
+// writes each block's column sums of acc and acc² (in a fixed order) to a
+// scratch array, and a second kernel adds the blocks of an instance in a
+// fixed order, so two calls give bit-identical statistics (no fp32
+// atomics). No padded copy of the input goes to device memory (the TPU
+// kernels' pads of W and C are TPU tiling).
 
 #include <stdint.h>
 
@@ -323,29 +367,19 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const vo
                : "r"(s));
 }
 
-// V consecutive bf16 ↔ fp32 (V = 8: 16 bytes, V = 4: 8 bytes).
-template <int V>
-__device__ __forceinline__ void load_v(const __nv_bfloat16* p, float* o) {
-  if constexpr (V == 8) {
-    wft::load8(p, o);
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-  }
+// Four consecutive bf16 (8 bytes) ↔ fp32.
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
 
-template <int V>
-__device__ __forceinline__ void store_v(__nv_bfloat16* p, const float* v) {
-  if constexpr (V == 8) {
-    wft::store8(p, v);
-  } else {
-    uint2 u;
-    *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
-    *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  uint2 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // bf16 elements of one ring stage: the halo, then the nine taps' weights.
@@ -359,15 +393,16 @@ __host__ __device__ constexpr int halo_ring_bytes() {
   return 2 * halo_stage_elems<NT>() * 2;
 }
 
-// V: channels per copied piece (8 when C % 8 == 0, else 4). Stage s covers
+// Copied pieces are 4 channels (8 bytes): C % 4 == 0. Stage s covers
 // kd = s / chunks and input channels 16·(s % chunks) …; dynamic shared
 // memory holds the 2-stage ring, then (prologue) mean and rstd of the
 // instance's C channels; the ring holds the fp32 output tile at the end.
-template <int V, int NT>
+template <int NT>
 __global__ void __launch_bounds__(kHaloThreads, 2) conv3_halo_kernel(Params p) {
   using bf16 = __nv_bfloat16;
   constexpr int BN = NT * 8;
   constexpr int kStage = halo_stage_elems<NT>();
+  constexpr int V = 4;              // channels per copied piece
   constexpr int kPieces = kHC / V;  // copied pieces per cell and stage
   static_assert(kTH * kTW * (BN + 4) * 4 <= halo_ring_bytes<NT>(), "output tile fits the ring");
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -410,13 +445,13 @@ __global__ void __launch_bounds__(kHaloThreads, 2) conv3_halo_kernel(Params p) {
       const int cell = e / kPieces, c = c0 + e % kPieces * V;
       long long off;
       const bool ok = cell_in(s, cell, off) && c < p.C;
-      wft::cp_async<V * 2, V != 8>(hs + cell * kHS + c - c0, ok ? x + off + c : x, ok);
+      wft::cp_async<V * 2, true>(hs + cell * kHS + c - c0, ok ? x + off + c : x, ok);
     }
     // rows past O are zero in the padded weights; channels past C are zero-filled
     for (int e = tid; e < 9 * BN * kPieces; e += kHaloThreads) {
       const int j = e / (BN * kPieces), n = e / kPieces % BN, c = c0 + e % kPieces * V;
       const bool ok = c < p.C;
-      wft::cp_async<V * 2, V != 8>(
+      wft::cp_async<V * 2, true>(
           ws + (j * BN + n) * kHS + c - c0,
           ok ? wt + (long long)(n0 + n) * p.kstride + (kd * 9 + j) * p.C + c : wt, ok);
     }
@@ -431,13 +466,13 @@ __global__ void __launch_bounds__(kHaloThreads, 2) conv3_halo_kernel(Params p) {
       if (!cell_in(s, cell, off) || c >= p.C) continue;
       bf16* q = hs + cell * kHS + c - c0;
       float z[V];
-      load_v<V>(q, z);
+      load4(q, z);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         z[i] = (z[i] - mean_s[c + i]) * rstd_s[c + i];
         if (p.act) z[i] = z[i] >= 0.f ? z[i] : z[i] * kNegSlope;
       }
-      store_v<V>(q, z);
+      store4(q, z);
     }
   };
 
@@ -523,14 +558,14 @@ __global__ void __launch_bounds__(kHaloThreads, 2) conv3_halo_kernel(Params p) {
                                          });
 }
 
-template <int V, int NT>
+template <int NT>
 cudaError_t launch_halo_nt(const Params& p, cudaStream_t stream) {
   const size_t smem = halo_ring_bytes<NT>() + (p.mean ? 2 * sizeof(float) * p.C : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      conv3_halo_kernel<V, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      conv3_halo_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((long long)p.B * p.tiles), (p.O + NT * 8 - 1) / (NT * 8));
-  conv3_halo_kernel<V, NT><<<grid, kHaloThreads, smem, stream>>>(p);
+  conv3_halo_kernel<NT><<<grid, kHaloThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -544,14 +579,13 @@ int pick_nt(int O) {
   return (O + 47) / 48 * 48 - O < (O + 63) / 64 * 64 - O ? 6 : 8;
 }
 
-template <int V>
 cudaError_t launch_halo(const Params& p, cudaStream_t stream) {
   switch (pick_nt(p.O)) {
-    case 1: return launch_halo_nt<V, 1>(p, stream);
-    case 2: return launch_halo_nt<V, 2>(p, stream);
-    case 4: return launch_halo_nt<V, 4>(p, stream);
-    case 6: return launch_halo_nt<V, 6>(p, stream);
-    default: return launch_halo_nt<V, 8>(p, stream);
+    case 1: return launch_halo_nt<1>(p, stream);
+    case 2: return launch_halo_nt<2>(p, stream);
+    case 4: return launch_halo_nt<4>(p, stream);
+    case 6: return launch_halo_nt<6>(p, stream);
+    default: return launch_halo_nt<8>(p, stream);
   }
 }
 
@@ -848,42 +882,495 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, DHWC, C % 8 == 0: TMA + wgmma with A read from shared memory (see
+// the header).
+
+constexpr int kClWgs = 2;                      // consumer warpgroups
+constexpr int kClThreads = kClWgs * 128 + 32;  // and one producer warp
+
+// M tiles of 64 voxels per consumer warpgroup: 96 fp32 accumulators a thread
+// at BN = 48 and at BN = 96.
+__host__ __device__ constexpr int cl_mt(int BN) { return BN <= 48 ? 4 : 2; }
+
+// 16-byte halo pieces a consumer thread normalises per stage, at most: the
+// halo with the most cells is the narrowest, (8·2·MT + 2) × (8 + 2).
+__host__ __device__ constexpr int cl_pieces(int BN) {
+  return (2 * (16 * cl_mt(BN) + 2) * 10 + kClWgs * 128 - 1) / (kClWgs * 128);
+}
+
+struct ClTiles {
+  int th, tw;       // output rows (h) and columns (w) of a block, multiples of 8
+  int hblocks, wblocks, chunks;
+  int stages;       // ring depth
+  int box_bytes;    // the halo: (th + 2)·(tw + 2) voxels of 16 channels
+  int stage_bytes;  // the nine taps' weights, then the halo; 1 KB multiple
+  int tiles;        // blocks per instance: D·hblocks·wblocks
+};
+
+// Output channels per block: O rounded up to 8 up to 48, else 64 or 96
+// (192 → 2 × 96: at 96 × 256 voxels a stage's weights and halo are 38 KB
+// per 1,728 tensor clocks, against 61 KB at 192 × 128).
+int cl_bn(int O) {
+  if (O <= 48) return (O + 7) / 8 * 8;
+  const int blocks = (O + 95) / 96, per = (O + blocks - 1) / blocks;
+  return per <= 64 ? 64 : 96;
+}
+
+// Bytes after the ring: full and empty barriers, the warps' column sums
+// [warp][2][BN], the prologue's mean and rstd.
+size_t cl_extra_bytes(int stages, int BN, int C) {
+  return (size_t)stages * 16 + (size_t)kClWgs * 4 * 2 * BN * 4 + (size_t)2 * C * 4;
+}
+
+// A block's 2·MT M tiles of 8 × 8 voxels, arranged (th / 8) × (tw / 8): the
+// fewest padded voxels over the plane, then the fewest halo cells, then the
+// widest rows.
+ClTiles cl_tiles(int D, int H, int W, int C, int BN) {
+  ClTiles q{};
+  const int mtiles = kClWgs * cl_mt(BN);
+  long long best_vox = -1, best_halo = 0;
+  for (int tw8 = 1; tw8 <= mtiles; tw8 *= 2) {
+    const int th = 8 * (mtiles / tw8), tw = 8 * tw8;
+    const long long blocks = (long long)((H + th - 1) / th) * ((W + tw - 1) / tw);
+    const long long vox = blocks * th * tw, halo = blocks * (th + 2) * (tw + 2);
+    if (best_vox < 0 || vox < best_vox || (vox == best_vox && halo <= best_halo)) {
+      best_vox = vox, best_halo = halo, q.th = th, q.tw = tw;
+    }
+  }
+  q.hblocks = (H + q.th - 1) / q.th;
+  q.wblocks = (W + q.tw - 1) / q.tw;
+  q.chunks = (C + 15) / 16;
+  q.box_bytes = (q.th + 2) * (q.tw + 2) * 32;
+  q.stage_bytes = (9 * BN * 32 + q.box_bytes + 1023) / 1024 * 1024;
+  q.stages = 4;
+  while (q.stages >= 2 &&
+         1024 + (size_t)q.stages * q.stage_bytes + cl_extra_bytes(q.stages, BN, C) > kSmemMax) {
+    --q.stages;
+  }
+  q.tiles = D * q.hblocks * q.wblocks;
+  return q;
+}
+
+// The A operand of an M tile for one tap, straight from the halo: the halo
+// is [th + 2][tw + 2][16 channels], one 32-byte row per voxel with the
+// 32-byte swizzle, so 8 w-neighbours are one 8-row atom of the K-major
+// layout and the next h-row's 8 are `row_cells`·32 bytes on (sbo). `cell`
+// is the halo cell of the tile's first voxel shifted by the tap: cell0 +
+// kh·row_cells + kw. Any 32-byte step of the start is legal: the swizzle
+// follows the address bits, as TMA wrote them (a card test holds it).
+__device__ __forceinline__ uint64_t cl_desc_a(uint32_t halo, int cell, int row_cells) {
+  return wft::wgmma_desc(halo + cell * 32, 16, row_cells * 32, wft::kSwizzle32);
+}
+
+// The B operand of tap j: BN rows of 16 channels (32 bytes), K-major, as TMA
+// writes the per-tap packing with the 32-byte swizzle.
+template <int BN>
+__device__ __forceinline__ uint64_t cl_desc_b(uint32_t weights, int j) {
+  return wft::wgmma_desc(weights + j * BN * 32, 16, 256, wft::kSwizzle32);
+}
+
+// kPro: the InstanceNorm prologue (p.mean, p.rstd set), compiled apart so
+// that the conv alone carries none of its code in the main loop.
+template <int BN, bool kPro>
+__global__ void __launch_bounds__(kClThreads, 1)
+    conv3_cl_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap, Params p, ClTiles q) {
+  using bf16 = __nv_bfloat16;
+  constexpr int MT = cl_mt(BN), kConsumers = kClWgs * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - wft::smem_u32(smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + q.stages * q.stage_bytes);
+  uint64_t* empty = full + q.stages;
+  float* red = reinterpret_cast<float*>(empty + q.stages);  // [warp][2][BN]
+  float* mean_s = red + kClWgs * 4 * 2 * BN;
+  float* rstd_s = mean_s + p.C;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int b = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
+  const int w0 = tile % q.wblocks * q.tw;
+  const int h0 = tile / q.wblocks % q.hblocks * q.th;
+  const int d = tile / (q.wblocks * q.hblocks);
+  const int n0 = blockIdx.y * BN;
+  const int stages = 3 * q.chunks;  // (kd, 16-channel chunk)
+  if (tid == 0) {
+    for (int i = 0; i < q.stages; ++i) {
+      wft::mbar_init(full + i, 1);
+      wft::mbar_init(empty + i, kConsumers);
+    }
+    wft::mbar_init_fence();
+  }
+  if (kPro) {
+    for (int c = tid; c < p.C; c += kClThreads) {
+      mean_s[c] = p.mean[(long long)b * p.C + c];
+      rstd_s[c] = p.rstd[(long long)b * p.C + c];
+    }
+  }
+  __syncthreads();
+
+  if (wg == kClWgs) {  // the producer warp: one thread issues every copy
+    if (tid == kConsumers) {
+      for (int s = 0; s < stages; ++s) {
+        const int slot = s % q.stages, kd = s / q.chunks, c0 = s % q.chunks * 16;
+        if (s >= q.stages) wft::mbar_wait_or_trap(empty + slot, (s / q.stages - 1) & 1);
+        uint8_t* st = smem + slot * q.stage_bytes;
+        uint8_t* halo = st + 9 * BN * 32;
+        wft::mbar_arrive_expect_tx(full + slot, 9 * BN * 32 + q.box_bytes);
+        wft::tma_load_3d(st, &wmap, full + slot, 0, n0, (c0 / 16 * 3 + kd) * 9);
+        // input cells (h0 − 1 …, w0 − 1 …) of plane d + kd − 1: TMA fills
+        // zeros outside the volume (the SAME padding) and past C
+        wft::tma_load_5d(halo, &xmap, full + slot, c0, w0 - 1, h0 - 1, d + kd - 1, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: M tiles wg·MT … of the block's (th / 8) × (tw / 8)
+  // grid; row m = 8r + c of tile (mh, mw) is output voxel (h0 + 8·mh + r,
+  // w0 + 8·mw + c), which reads halo cell (8·mh + r + kh, 8·mw + c + kw)
+  const int lt = tid % 128, warp = lt / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int tw8 = q.tw / 8, row_cells = q.tw + 2;
+  int cell0[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int mi = wg * MT + i;
+    cell0[i] = 8 * (mi / tw8) * row_cells + 8 * (mi % tw8);
+  }
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0.f;
+
+  // the prologue's pieces of this thread, the same in every stage: piece k
+  // is 8-channel half e % 2 = tid % 2 of halo cell e / 2, e = tid + 256·k,
+  // at byte offset off[k] of the stage's halo (swizzled), or −1 where its
+  // voxel lies outside the plane (H × W) or past the halo
+  constexpr int kPieces = cl_pieces(BN);
+  int off[kPieces];
+  {
+    const int cells = (q.th + 2) * row_cells;
+#pragma unroll
+    for (int k = 0; k < kPieces; ++k) {
+      const int e = tid + kConsumers * k, cell = e / 2;
+      const int h = h0 - 1 + cell / row_cells, w = w0 - 1 + cell % row_cells;
+      const bool in = e < 2 * cells && h >= 0 && h < p.H && w >= 0 && w < p.W;
+      off[k] = in ? (int)swizzled(16 * e, 32) : -1;
+    }
+  }
+  // the prologue on stage s in place: in-volume cells only, so the SAME halo
+  // (TMA's zero fill) stays zero; rounded to bf16 once
+  auto normalise = [&](int s) {
+    const int kd = s / q.chunks, c0 = s % q.chunks * 16;
+    const int dd = d + kd - 1;
+    const int c = c0 + 8 * (tid % 2);  // this thread's 8 channels
+    if (dd < 0 || dd >= p.D || c >= p.C) return;
+    const float4* m4 = reinterpret_cast<const float4*>(mean_s + c);
+    const float4* r4 = reinterpret_cast<const float4*>(rstd_s + c);
+    const float4 m[2] = {m4[0], m4[1]}, r[2] = {r4[0], r4[1]};
+    uint8_t* halo = smem + (s % q.stages) * q.stage_bytes + 9 * BN * 32;
+    // pieces in groups of kGroup: loaded, then computed, then stored (offset
+    // 0 stands in for one outside, which is not stored), so a group's loads
+    // do not wait for the stores before them; groups of 3 keep BN = 48 in
+    // 168 registers
+    constexpr int kGroup = 3;
+#pragma unroll
+    for (int k0 = 0; k0 < kPieces; k0 += kGroup) {
+      uint4 raw[kGroup];
+#pragma unroll
+      for (int k = 0; k < kGroup && k0 + k < kPieces; ++k) {
+        const int o = off[k0 + k];
+        raw[k] = *reinterpret_cast<const uint4*>(halo + (o < 0 ? 0 : o));
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup && k0 + k < kPieces; ++k) {
+        __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&raw[k]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 a = __bfloat1622float2(x2[2 * i]), b = __bfloat1622float2(x2[2 * i + 1]);
+          float z[4] = {(a.x - m[i].x) * r[i].x, (a.y - m[i].y) * r[i].y,
+                        (b.x - m[i].z) * r[i].z, (b.y - m[i].w) * r[i].w};
+          if (p.act) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) z[j] = fmaxf(z[j], z[j] * kNegSlope);  // LeakyReLU
+          }
+          x2[2 * i] = __floats2bfloat162_rn(z[0], z[1]);
+          x2[2 * i + 1] = __floats2bfloat162_rn(z[2], z[3]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup && k0 + k < kPieces; ++k) {
+        if (off[k0 + k] >= 0) *reinterpret_cast<uint4*>(halo + off[k0 + k]) = raw[k];
+      }
+    }
+  };
+
+  // stage s has landed (and, with the prologue, this thread's part of it is
+  // normalised and ordered before the async proxy's reads)
+  auto ready = [&](int s) {
+    wft::mbar_wait_or_trap(full + s % q.stages, (s / q.stages) & 1);
+    if (kPro) {
+      normalise(s);
+      wft::fence_proxy_async();
+    }
+  };
+
+  if (kPro) {
+    ready(0);
+    wft::named_bar_sync(1, kConsumers);
+  }
+  for (int s = 0; s < stages; ++s) {
+    if (!kPro) ready(s);
+    const uint32_t st = wft::smem_u32(smem + (s % q.stages) * q.stage_bytes);
+    const uint32_t halo = st + 9 * BN * 32;
+    wft::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < MT; ++i) wft::fence_regs(acc[i]);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {  // tap (kh, kw) = (j / 3, j % 3)
+      const uint64_t db = cl_desc_b<BN>(st, j);
+      const int shift = j / 3 * row_cells + j % 3;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        wft::Wgmma<BN>::template run<0, 0>(acc[i], cl_desc_a(halo, cell0[i] + shift, row_cells),
+                                           db, 1);
+      }
+    }
+    wft::wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < MT; ++i) wft::fence_regs(acc[i]);
+    // the group of stage s − 1 is done: its slot goes back to the producer
+    wft::wgmma_wait<1>();
+    if (s > 0) wft::mbar_arrive(empty + (s - 1) % q.stages);
+    if (kPro) {
+      // normalise stage s + 1 while the products of stage s run
+      if (s + 1 < stages) ready(s + 1);
+      wft::named_bar_sync(1, kConsumers);
+    }
+  }
+  wft::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) wft::fence_regs(acc[i]);
+
+  // accumulator rows 16·warp + g and + 8 of tile i: voxel rows 2·warp and
+  // 2·warp + 1 of the tile, column g; rows past H or W are not outputs
+  bool ok0[MT], ok1[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int mi = wg * MT + i;
+    const int h = h0 + 8 * (mi / tw8) + 2 * warp, w = w0 + 8 * (mi % tw8) + g;
+    ok0[i] = h < p.H && w < p.W;
+    ok1[i] = h + 1 < p.H && w < p.W;
+  }
+  const bool stats = p.partial != nullptr;
+  if (stats) {
+    // column sums of acc and acc², in a fixed order: the thread's rows, the
+    // 8 lanes of a column (xor over g), then the warps in order
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float v0 = acc[i][4 * j + e], v1 = acc[i][4 * j + 2 + e];
+          if (ok0[i]) s1 += v0, s2 = fmaf(v0, v0, s2);
+          if (ok1[i]) s1 += v1, s2 = fmaf(v1, v1, s2);
+        }
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+        }
+        if (g == 0) {
+          float* r = red + (wg * 4 + warp) * 2 * BN + 8 * j + 2 * t + e;
+          r[0] = s1;
+          r[BN] = s2;
+        }
+      }
+  }
+  wft::named_bar_sync(1, kConsumers);  // every warpgroup is done with the ring
+  if (stats) {
+    for (int n = tid; n < BN; n += kConsumers) {
+      if (n0 + n >= p.O) continue;
+      float s1 = 0.f, s2 = 0.f;
+      for (int w = 0; w < kClWgs * 4; ++w) {
+        s1 += red[w * 2 * BN + n];
+        s2 += red[w * 2 * BN + BN + n];
+      }
+      float* dst = p.partial + (((long long)b * 2) * p.O + n0 + n) * p.tiles + tile;
+      dst[0] = s1;
+      dst[(long long)p.O * p.tiles] = s2;
+    }
+  }
+  // the bf16 tile, [voxel][n] with rows of BN + 8, in the ring
+  constexpr int kCS = BN + 8;
+  bf16* cs = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int v = (wg * MT + i) * 64 + warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(cs + v * kCS + n) =
+          __floats2bfloat162_rn(acc[i][4 * j], acc[i][4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(cs + (v + 8) * kCS + n) =
+          __floats2bfloat162_rn(acc[i][4 * j + 2], acc[i][4 * j + 3]);
+    }
+  }
+  wft::named_bar_sync(1, kConsumers);
+  // 16-byte stores along C (elementwise where O % 8 != 0)
+  bf16* y = static_cast<bf16*>(p.y);
+  constexpr int kVecs = BN / 8;
+  for (int e = tid; e < kClWgs * MT * 64 * kVecs; e += kConsumers) {
+    const int v = e / kVecs, c8 = e % kVecs;
+    const int mi = v / 64, m = v % 64;
+    const int h = h0 + 8 * (mi / tw8) + m / 8, w = w0 + 8 * (mi % tw8) + m % 8;
+    const int n = n0 + 8 * c8;
+    if (h >= p.H || w >= p.W || n >= p.O) continue;
+    bf16* dst = y + ((((long long)b * p.D + d) * p.H + h) * p.W + w) * p.O + n;
+    const bf16* src = cs + v * kCS + 8 * c8;
+    if (p.O % 8 == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int k = 0; k < 8 && n + k < p.O; ++k) dst[k] = src[k];
+    }
+  }
+}
+
+template <int BN, bool kPro>
+cudaError_t launch_cl_kernel(const Params& p, cudaStream_t stream) {
+  const ClTiles q = cl_tiles(p.D, p.H, p.W, p.C, BN);
+  // the staged bf16 tile must fit the ring
+  const size_t tile_bytes = (size_t)kClWgs * cl_mt(BN) * 64 * (BN + 8) * 2;
+  if (q.stages < 2 || q.tiles != p.tiles || tile_bytes > (size_t)q.stages * q.stage_bytes) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = 1024 + (size_t)q.stages * q.stage_bytes + cl_extra_bytes(q.stages, BN, p.C);
+  // x as (C, W, H, D, B): D and B apart, so plane −1 of an instance is zero;
+  // C % 8 == 0 makes every stride a multiple of 16 bytes, as TMA needs
+  CUtensorMap xmap, wmap;
+  const uint64_t row = (uint64_t)p.C * 2;
+  const uint64_t xdims[5] = {(uint64_t)p.C, (uint64_t)p.W, (uint64_t)p.H, (uint64_t)p.D,
+                             (uint64_t)p.B};
+  const uint64_t xstr[4] = {row, row * p.W, row * p.W * p.H, row * p.W * p.H * p.D};
+  const uint32_t xbox[5] = {16, (uint32_t)q.tw + 2, (uint32_t)q.th + 2, 1, 1};
+  cudaError_t err =
+      wft::make_map_bf16(&xmap, p.x, 5, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err != cudaSuccess) return err;
+  // weights as (16 channels, O, 27·chunks taps) of the per-tap packing
+  const uint64_t wdims[3] = {16, (uint64_t)p.O, (uint64_t)27 * q.chunks};
+  const uint64_t wstr[2] = {32, (uint64_t)p.O * 32};
+  const uint32_t wbox[3] = {16, BN, 9};
+  err = wft::make_map_bf16(&wmap, p.w, 3, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(conv3_cl_kernel<BN, kPro>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)((long long)p.B * p.tiles), (p.O + BN - 1) / BN);
+  conv3_cl_kernel<BN, kPro><<<grid, kClThreads, smem, stream>>>(xmap, wmap, p, q);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_cl_bn(const Params& p, cudaStream_t stream) {
+  return p.mean != nullptr ? launch_cl_kernel<BN, true>(p, stream)
+                           : launch_cl_kernel<BN, false>(p, stream);
+}
+
+cudaError_t launch_cl(const Params& p, cudaStream_t stream) {
+  switch (cl_bn(p.O)) {
+    case 8: return launch_cl_bn<8>(p, stream);
+    case 16: return launch_cl_bn<16>(p, stream);
+    case 24: return launch_cl_bn<24>(p, stream);
+    case 32: return launch_cl_bn<32>(p, stream);
+    case 40: return launch_cl_bn<40>(p, stream);
+    case 48: return launch_cl_bn<48>(p, stream);
+    case 64: return launch_cl_bn<64>(p, stream);
+    default: return launch_cl_bn<96>(p, stream);
+  }
+}
+
+// One m64n16k16 product as conv3_cl_kernel issues it for one tap: A from a
+// halo image [rows][row_cells][16] at `cell`, written with the 32-byte
+// swizzle as TMA writes it; B the first 16 rows of a per-tap packing box; out
+// (64, 16) fp32. For the card test of the descriptors.
+__global__ void __launch_bounds__(128) conv3_cl_probe_kernel(const __nv_bfloat16* halo,
+                                                             const __nv_bfloat16* wt,
+                                                             float* out, int rows,
+                                                             int row_cells, int cell) {
+  __shared__ __align__(1024) uint8_t sm[1024 + 16384];
+  const int tid = threadIdx.x;
+  for (int e = tid; e < rows * row_cells * 2; e += 128) {
+    *reinterpret_cast<uint4*>(sm + 1024 + swizzled(16 * e, 32)) =
+        reinterpret_cast<const uint4*>(halo)[e];
+  }
+  for (int e = tid; e < 16 * 2; e += 128) {  // 16 rows of 32 bytes
+    *reinterpret_cast<uint4*>(sm + swizzled(16 * e, 32)) = reinterpret_cast<const uint4*>(wt)[e];
+  }
+  wft::fence_proxy_async();
+  __syncthreads();
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const uint32_t base = wft::smem_u32(sm);
+  wft::wgmma_fence();
+  wft::Wgmma<16>::run<0, 0>(acc, cl_desc_a(base + 1024, cell, row_cells), cl_desc_b<16>(base, 0),
+                            0);
+  wft::wgmma_commit();
+  wft::wgmma_wait<0>();
+  wft::fence_regs(acc);
+  const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float* r0 = out + (16 * warp + g) * 16 + 8 * j + 2 * t;
+    r0[0] = acc[4 * j];
+    r0[1] = acc[4 * j + 1];
+    r0[8 * 16] = acc[4 * j + 2];
+    r0[8 * 16 + 1] = acc[4 * j + 3];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Dispatch: depends on the dtype, the layout and the shape only.
 
-enum Design : int { kHaloMma = 0, kPlain = 1, kTmaWgmma = 2 };
+enum Design : int { kHaloMma = 0, kPlain = 1, kTmaWgmma = 2, kTmaWgmmaCl = 3 };
 
+// C % 8 == 0 for the channels-last TMA design: a map's strides must be
+// multiples of 16 bytes, and at C = 4 the W stride is 8. The flagship's one
+// C = 4 conv (encoder1 conv1, 128³·4 → 48) moves bytes, not products, and the
+// halo kernel already beats cuDNN there.
 int design_of(int dtype, int layout, int W, int C) {
+  if (dtype == wft::kBFloat16 && layout == kDHWC && C % 8 == 0) return kTmaWgmmaCl;
   if (dtype == wft::kBFloat16 && layout == kDHWC && C % 4 == 0) return kHaloMma;
   if (dtype == wft::kBFloat16 && layout == kDHCW && W % 8 == 0) return kTmaWgmma;
   return kPlain;
 }
 
-
-long long tiles_of(int dtype, int layout, int D, int H, int W, int C) {
-  if (design_of(dtype, layout, W, C) == kHaloMma) {
-    return (long long)D * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  }
+long long tiles_of(int dtype, int layout, int D, int H, int W, int C, int O) {
+  const int design = design_of(dtype, layout, W, C);
+  if (design == kHaloMma) return (long long)D * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+  if (design == kTmaWgmmaCl) return cl_tiles(D, H, W, C, cl_bn(O)).tiles;
   return ((long long)D * H * W + kBM - 1) / kBM;
 }
 
 }  // namespace
 
-// Blocks per instance along the volume for these arguments (DHWC, where the
-// statistics are): the scratch `partial` of wft_conv3 holds B·2·O·tiles floats.
-extern "C" long long wft_conv3_tiles(int dtype, int layout, int D, int H, int W, int C) {
-  return tiles_of(dtype, layout, D, H, W, C);
-}
-
 // The design wft_conv3 launches for these arguments: 0 = the halo-tile
-// mma.sync kernel, 1 = the plain kernel, 2 = the TMA + wgmma kernel.
+// mma.sync kernel, 1 = the plain kernel, 2 = the (D, H, C, W) TMA + wgmma
+// kernel, 3 = the channels-last TMA + wgmma kernel.
 extern "C" int wft_conv3_design(int dtype, int layout, int W, int C) {
   return design_of(dtype, layout, W, C);
+}
+
+// Blocks per instance along the volume for these arguments (DHWC, where
+// the statistics are): the scratch `partial` of wft_conv3 holds
+// B·2·O·tiles floats.
+extern "C" long long wft_conv3_tiles(int dtype, int layout, int D, int H, int W, int C, int O) {
+  return tiles_of(dtype, layout, D, H, W, C, O);
 }
 
 // Returns a cudaError_t (0 on success). For designs 0 and 1, `w` is
 // (ceil(O / 64)·64, K8) in the input dtype, K8 = 27·C rounded up to 8, row n
 // holding output channel n's taps at k = tap·C + c (tap = (kd·3 + kh)·3 +
-// kw), zero elsewhere. For design 2, `w` is the per-tap packing
+// kw), zero elsewhere. For designs 2 and 3, `w` is the per-tap packing
 // (ceil(C / 16), 3, 9, O, 16) bf16: [chunk, kd, kh·3 + kw, n, c − 16·chunk],
 // zero past C.
 // `mean`/`rstd` (B, C) fp32 turn the prologue on (DHWC only); `partial`
@@ -900,28 +1387,42 @@ extern "C" int wft_conv3(int dtype, int layout, const void* x, const void* w,
   if ((mean == nullptr) != (rstd == nullptr) || (partial == nullptr) != (stats == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long tiles = tiles_of(dtype, layout, D, H, W, C);
+  const int design = design_of(dtype, layout, W, C);
+  const long long tiles = tiles_of(dtype, layout, D, H, W, C, O);
   if ((long long)B * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Params p{x, w, static_cast<const float*>(mean), static_cast<const float*>(rstd), y,
            static_cast<float*>(partial), B, D, H, W, C, O, (int)tiles, act,
            (27 * C + 7) / 8 * 8};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  const int design = design_of(dtype, layout, W, C);
-  if (design == kHaloMma) {
-    err = C % 8 == 0 ? launch_halo<8>(p, s) : launch_halo<4>(p, s);
+  if (design == kTmaWgmmaCl) {
+    err = launch_cl(p, s);
+  } else if (design == kHaloMma) {
+    err = launch_halo(p, s);
   } else if (design == kTmaWgmma) {
     err = launch_tma(p, s);
   } else if (dtype == wft::kFloat32) {
     err = layout == kDHWC ? launch<float, kDHWC>(p, s) : launch<float, kDHCW>(p, s);
-  } else if (dtype == wft::kBFloat16) {
+  } else {
     err = layout == kDHWC ? launch<__nv_bfloat16, kDHWC>(p, s)
                           : launch<__nv_bfloat16, kDHCW>(p, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || stats == nullptr) return (int)err;
   stats_reduce_kernel<<<(unsigned)(B * 2 * O), 256, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(stats), (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+// One tap's wgmma of the channels-last TMA design (conv3_cl_probe_kernel),
+// for the card test of its shared-memory descriptors. Returns a cudaError_t.
+extern "C" int wft_conv3_cl_probe(const void* halo, const void* w, void* out, int rows,
+                                  int row_cells, int cell, void* stream) {
+  if (rows * row_cells * 32 > 16384 || cell < 0 ||
+      cell + 7 * row_cells + 8 > rows * row_cells) {
+    return (int)cudaErrorInvalidValue;
+  }
+  conv3_cl_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(halo), static_cast<const __nv_bfloat16*>(w),
+      static_cast<float*>(out), rows, row_cells, cell);
   return (int)cudaGetLastError();
 }

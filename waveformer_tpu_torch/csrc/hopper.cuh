@@ -1,9 +1,9 @@
 // Hopper-only helpers shared by the TMA + wgmma kernels: tensor maps built on
 // the host, bulk tensor copies (TMA, 2- to 5-D) into shared memory tracked by
 // mbarriers, wgmma shared-memory descriptors, the wgmma.mma_async product
-// (bf16 → fp32, m64nNk16, A in shared memory (N 64, 128, 256) or in
-// registers (N 16, 32, 48, 64, 96)) and its fences, and the async-proxy
-// fence. Inline PTX for sm_90a.
+// (bf16 → fp32, m64nNk16, A in shared memory (N 8 … 48 in steps of 8, 64,
+// 96, 128, 256) or in registers (N 16, 32, 48, 64, 96)) and its fences, and
+// the async-proxy fence. Inline PTX for sm_90a.
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its address
 // is fetched once at run time, so the libraries link the runtime only.
@@ -202,9 +202,15 @@ enum Swizzle : int { kSwizzleNone = 0, kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle
 //   K-major:  rows are M (or N), each holding 16 K-values of 2 bytes at the
 //             start; sbo = the stride of 8-row groups, lbo unused (16). K
 //             advances by moving `addr` inside the row (32 bytes per k16).
+//             The swizzle follows the address bits, so `addr` may also move
+//             by whole rows (measured at the 32-byte swizzle, base offset 0).
 //   MN-major: rows are K, each holding span / 2 consecutive M (or N)
 //             values; lbo = the stride between such chunks of M (N), sbo =
 //             the stride of 8-K-row groups.
+// Unswizzled (kSwizzleNone), K-major: the tile is made of core matrices of 8
+// rows × 16 bytes (8 K-values), each 128 contiguous bytes; lbo = the stride
+// between the two core matrices of a k16 step (K), sbo = the stride between
+// 8-row groups (M or N). Any 16-byte aligned start is legal.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                                int swizzle) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
@@ -241,6 +247,104 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // d[4j], d[4j + 1] = D[16w + g][8j + 2t, + 1], d[4j + 2], d[4j + 3] = D[16w + g + 8][…].
 template <int N> struct Wgmma;
 
+template <> struct Wgmma<8> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <> struct Wgmma<16> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <> struct Wgmma<24> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[12], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <> struct Wgmma<32> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <> struct Wgmma<40> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[20], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <> struct Wgmma<48> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+};
+
 template <> struct Wgmma<64> {
   template <int kTransA, int kTransB>
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db,
@@ -259,6 +363,29 @@ template <> struct Wgmma<64> {
         : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
   }
 };
+
+template <> struct Wgmma<96> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[48], uint64_t da, uint64_t db,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
+};
+
 
 template <> struct Wgmma<128> {
   template <int kTransA, int kTransB>

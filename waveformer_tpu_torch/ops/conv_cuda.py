@@ -19,10 +19,12 @@ not depend on it.
 On CPU tensors every wrapper runs `conv3x3x3_reference`; on CUDA tensors it
 launches the kernel or raises (fp32 with TF32 off is an FMA loop, bf16 runs
 on tensor cores). Which of the kernel's designs runs depends on the dtype,
-the layout and the shape only (`design`): bf16 channels-last on the
-halo-tile `mma.sync` kernel, bf16 (D, H, C, W) with W % 8 == 0 on the TMA +
-`wgmma` kernel (weights in the `pack_taps` order), the rest on the plain
-kernel. `design_launches` counts the launches of each.
+the layout and the shape only (`design`): bf16 channels-last with C % 8 ==
+0 on the channels-last TMA + `wgmma` kernel, other bf16 channels-last with
+C % 4 == 0 on the halo-tile `mma.sync` kernel, bf16 (D, H, C, W) with W % 8
+== 0 on the (D, H, C, W) TMA + `wgmma` kernel (both TMA kernels take the
+weights in the `pack_taps` order), the rest on the plain kernel.
+`design_launches` counts the launches of each.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ launches = {"conv3x3x3_same": 0, "conv3x3x3_batched": 0, "conv3x3x3_cw": 0,
             "conv3x3x3_same_v2": 0}
 # the kernel's designs, by the number `wft_conv3_design` returns, and the
 # launches of each (every launch of csrc/conv3.cu, the fused conv's included)
-DESIGNS = ("halo_mma", "plain", "tma_wgmma")
+DESIGNS = ("halo_mma", "plain", "tma_wgmma", "tma_wgmma_cl")
 design_launches = {name: 0 for name in DESIGNS}
 
 
@@ -71,7 +73,23 @@ def pack_taps(w: torch.Tensor) -> torch.Tensor:
 
 def design(dtype: torch.dtype, layout: int, w_extent: int, c: int) -> str:
     """The design `csrc/conv3.cu` launches for these arguments (its
-    `wft_conv3_design`); needs the built library."""
+    `wft_conv3_design`): bf16 channels-last with C % 8 == 0 (a W stride of
+    whole 16 bytes, as TMA needs) on `tma_wgmma_cl`, other bf16
+    channels-last with C % 4 == 0 on `halo_mma`, bf16 (D, H, C, W) with
+    W % 8 == 0 on `tma_wgmma`, everything else on `plain`."""
+    if dtype == torch.bfloat16:
+        if layout == DHWC and c % 8 == 0:
+            return "tma_wgmma_cl"
+        if layout == DHWC and c % 4 == 0:
+            return "halo_mma"
+        if layout == DHCW and w_extent % 8 == 0:
+            return "tma_wgmma"
+    return "plain"
+
+
+def library_design(dtype: torch.dtype, layout: int, w_extent: int, c: int) -> str:
+    """`wft_conv3_design` of the built library (the rule that `design`
+    restates); needs nvcc."""
     fn = _build.LIBRARIES.get("conv3").wft_conv3_design
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 4
@@ -111,7 +129,7 @@ def launch(
     o = w.shape[-1]
     x = _build.aligned16(x)
     name = design(x.dtype, layout, wd, c)
-    if name == "tma_wgmma":
+    if name in ("tma_wgmma", "tma_wgmma_cl"):
         wk = pack_taps(w.to(x.dtype))
     else:  # (O rounded up to 64, 27·C rounded up to 8), k = tap·C + c, zero-padded
         wk = torch.zeros((-(-o // 64) * 64, -(-27 * c // 8) * 8), dtype=x.dtype, device=x.device)
@@ -124,8 +142,8 @@ def launch(
     lib = _build.LIBRARIES.get("conv3")
     if emit_stats:
         lib.wft_conv3_tiles.restype = ctypes.c_longlong
-        lib.wft_conv3_tiles.argtypes = [ctypes.c_int] * 6
-        tiles = lib.wft_conv3_tiles(_DTYPES[x.dtype], layout, d, h, wd, c)
+        lib.wft_conv3_tiles.argtypes = [ctypes.c_int] * 7
+        tiles = lib.wft_conv3_tiles(_DTYPES[x.dtype], layout, d, h, wd, c, o)
         partial = torch.empty(b * 2 * o * tiles, dtype=torch.float32, device=x.device)
         stats = torch.empty((b, 2, o), dtype=torch.float32, device=x.device)
     fn = lib.wft_conv3

@@ -1,9 +1,13 @@
 """Time design variants of a hand-written kernel against the committed source.
 
-    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3|window_attention|dwconv3] [--iters 32]
+    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3|conv3_dhwc|window_attention|dwconv3] [--iters 32]
 
-A variant is the committed `csrc/<kernel>.cu` with a few text substitutions
-(tile sizes, ring depth, warpgroups, the exponential, D segments), listed in `VARIANTS`. Each is built
+A variant is the committed `csrc/<source>.cu` with a few text substitutions
+(tile sizes, ring depth, warpgroups, the exponential, D segments, the
+halo's layout, the prologue's overlap and grouping), listed in `VARIANTS`; `conv3` is the (D, H, C, W)
+design of `csrc/conv3.cu` and `conv3_dhwc` its channels-last TMA design,
+timed in both forms (the conv alone, and with the InstanceNorm prologue and
+the statistics). Each is built
 with the port's nvcc flags into `_build/variants/`, then swapped in for the
 committed library, so the public wrappers run it unchanged: every variant
 is first held against the plain version, then timed with CUDA events at the
@@ -26,6 +30,7 @@ import torch
 from waveformer_tpu_torch.ops import _build
 from waveformer_tpu_torch.ops import conv_cuda
 from waveformer_tpu_torch.ops import dwconv_cuda
+from waveformer_tpu_torch.ops import fused_conv_cuda
 from waveformer_tpu_torch.ops import tiled_matmul_cuda as tm
 from waveformer_tpu_torch.ops.attention_cuda import window_attention, window_attention_reference
 from waveformer_tpu_torch.utils.profiling import device_time
@@ -77,6 +82,38 @@ def _dw_segments(per_block: int) -> List[Tuple[str, str]]:
     ]
 
 
+# conv3_dhwc: the halo's TMA load, and the first layout of the halo: two
+# boxes of 8 channels (16-byte voxel rows, unswizzled, each 128-byte
+# aligned), read by descriptors whose lbo is the second box's offset
+_CL_HALO_LOAD = ("        wft::tma_load_5d(halo, &xmap, full + slot, c0, w0 - 1, h0 - 1, d + kd - 1, "
+                 "b);\n")
+_CL_HALF = "((q.box_bytes + 127) / 128 * 128)"
+_CL_HALVES = [
+    ("  q.box_bytes = (q.th + 2) * (q.tw + 2) * 32;\n"
+     "  q.stage_bytes = (9 * BN * 32 + q.box_bytes + 1023) / 1024 * 1024;",
+     "  q.box_bytes = (q.th + 2) * (q.tw + 2) * 16;\n"
+     f"  q.stage_bytes = (9 * BN * 32 + 2 * {_CL_HALF} + 1023) / 1024 * 1024;"),
+    ("template <int BN>\n__device__ __forceinline__ uint64_t cl_desc_b(",
+     "__device__ __forceinline__ uint64_t cl_desc_a16(uint32_t halo, int cell, int row_cells,\n"
+     "                                                int half) {\n"
+     "  return wft::wgmma_desc(halo + cell * 16, half, row_cells * 16, wft::kSwizzleNone);\n}\n\n"
+     "template <int BN>\n__device__ __forceinline__ uint64_t cl_desc_b("),
+    ("wft::mbar_arrive_expect_tx(full + slot, 9 * BN * 32 + q.box_bytes);",
+     "wft::mbar_arrive_expect_tx(full + slot, 9 * BN * 32 + 2 * q.box_bytes);"),
+    (_CL_HALO_LOAD, _CL_HALO_LOAD + f"        wft::tma_load_5d(halo + {_CL_HALF}, &xmap, full + slot, "
+     "c0 + 8, w0 - 1, h0 - 1, d + kd - 1, b);\n"),
+    ("      off[k] = in ? (int)swizzled(16 * e, 32) : -1;",
+     f"      off[k] = in ? (e & 1) * {_CL_HALF} + e / 2 * 16 : -1;"),
+    ("acc[i], cl_desc_a(halo, cell0[i] + shift, row_cells),",
+     f"acc[i], cl_desc_a16(halo, cell0[i] + shift, row_cells, {_CL_HALF}),"),
+    ("  const uint32_t xbox[5] = {16, (uint32_t)q.tw + 2, (uint32_t)q.th + 2, 1, 1};\n"
+     "  cudaError_t err =\n"
+     "      wft::make_map_bf16(&xmap, p.x, 5, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_32B);",
+     "  const uint32_t xbox[5] = {8, (uint32_t)q.tw + 2, (uint32_t)q.th + 2, 1, 1};\n"
+     "  cudaError_t err =\n"
+     "      wft::make_map_bf16(&xmap, p.x, 5, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_NONE);"),
+]
+
 # name → substitutions (old, new) on the committed source; the first is it
 VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
     "tiled_matmul": {
@@ -115,6 +152,39 @@ VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
             ("wft::wgmma_wait<1>();\n        if (s > 0 && mt == 0 && kh == 0)",
              "wft::wgmma_wait<2>();\n        if (s > 0 && mt == 0 && kh == 1)")],
     },
+    "conv3_dhwc": {
+        "32-byte voxel rows, 16 x 32 voxels at BN <= 48, 4 stages, prologue overlapped (committed)": [],
+        "16 x 16 voxels at every BN (2 M tiles a warpgroup)": [
+            ("constexpr int cl_mt(int BN) { return BN <= 48 ? 4 : 2; }",
+             "constexpr int cl_mt(int BN) { return 2; }")],
+        "ring of 2 stages": [("  q.stages = 4;\n  while (q.stages >= 2", "  q.stages = 2;\n  while (q.stages >= 2")],
+        "ring of up to 6 stages": [("  q.stages = 4;\n  while (q.stages >= 2", "  q.stages = 6;\n  while (q.stages >= 2")],
+        # the same result with twice the TMA work of one operand: how much of
+        # a stage's time the copies take
+        "halo box loaded twice": [
+            ("wft::mbar_arrive_expect_tx(full + slot, 9 * BN * 32 + q.box_bytes);",
+             "wft::mbar_arrive_expect_tx(full + slot, 9 * BN * 32 + 2 * q.box_bytes);"),
+            (_CL_HALO_LOAD, _CL_HALO_LOAD * 2)],
+        "weights loaded twice": [
+            ("wft::mbar_arrive_expect_tx(full + slot, 9 * BN * 32 + q.box_bytes);",
+             "wft::mbar_arrive_expect_tx(full + slot, 18 * BN * 32 + q.box_bytes);"),
+            ("        wft::tma_load_3d(st, &wmap, full + slot, 0, n0, (c0 / 16 * 3 + kd) * 9);\n",
+             "        wft::tma_load_3d(st, &wmap, full + slot, 0, n0, (c0 / 16 * 3 + kd) * 9);\n"
+             "        wft::tma_load_3d(st, &wmap, full + slot, 0, n0, (c0 / 16 * 3 + kd) * 9);\n")],
+        "16-byte voxel rows in two unswizzled 8-channel boxes (the first layout)": _CL_HALVES,
+        "prologue on the stage about to be multiplied (not overlapped)": [
+            ("  if (kPro) {\n    ready(0);\n    wft::named_bar_sync(1, kConsumers);\n  }\n", ""),
+            ("    if (!kPro) ready(s);\n",
+             "    ready(s);\n    if (kPro) wft::named_bar_sync(1, kConsumers);\n"),
+            ("    if (kPro) {\n      // normalise stage s + 1 while the products of stage s run\n"
+             "      if (s + 1 < stages) ready(s + 1);\n      wft::named_bar_sync(1, kConsumers);\n"
+             "    }\n", "")],
+        "prologue pieces loaded all at once (spills at BN = 48)": [
+            ("    constexpr int kGroup = 3;\n", "    constexpr int kGroup = kPieces;\n")],
+        "two stages' groups in flight": [
+            ("    wft::wgmma_wait<1>();\n    if (s > 0) wft::mbar_arrive(empty + (s - 1) % q.stages);",
+             "    wft::wgmma_wait<2>();\n    if (s > 1) wft::mbar_arrive(empty + (s - 2) % q.stages);")],
+    },
     "dwconv3": {
         "whole-D march per tile (committed)": [],
         "D cut below 4 tiles per block (the first ring design)": _dw_segments(4),
@@ -130,11 +200,18 @@ DW_SHAPES = [(8, 64, 64, 64, 192), (8, 32, 32, 32, 384), (8, 16, 16, 16, 768),
              (8, 8, 8, 8, 1536), (8, 64, 64, 64, 96)]
 CONV_SHAPES = [(8, (128,) * 3, 4, 48), (8, (128,) * 3, 96, 48), (8, (64,) * 3, 96, 48),
                (8, (32,) * 3, 192, 96), (8, (16,) * 3, 384, 192)]
+# (B, (D, H, W), C, O) of the channels-last TMA design: the largest and the
+# smallest res-block convs of a batch-8 forward
+CONV_DHWC_SHAPES = [(8, (128,) * 3, 96, 48), (8, (16,) * 3, 384, 192)]
+# the source each kernel's variants edit
+SOURCES = {"conv3_dhwc": "conv3"}
 
 
 def build(kernel: str, name: str, subs: List[Tuple[str, str]]) -> ctypes.CDLL:
-    """Compile the committed source with `subs` applied; raise if one does not apply."""
-    src = open(os.path.join(_build.CSRC, f"{kernel}.cu")).read()
+    """Compile the committed source of `kernel` with `subs` applied; raise
+    if one does not apply."""
+    source = SOURCES.get(kernel, kernel)
+    src = open(os.path.join(_build.CSRC, f"{source}.cu")).read()
     for old, new in subs:
         if old not in src:
             raise ValueError(f"variant {name!r}: {old!r} is not in {kernel}.cu")
@@ -145,10 +222,10 @@ def build(kernel: str, name: str, subs: List[Tuple[str, str]]) -> ctypes.CDLL:
     for f in os.listdir(_build.CSRC):
         if f.endswith(".cuh"):
             shutil.copy(os.path.join(_build.CSRC, f), out_dir)
-    cu = os.path.join(out_dir, f"{kernel}.cu")
+    cu = os.path.join(out_dir, f"{source}.cu")
     with open(cu, "w") as f:
         f.write(src)
-    lib = os.path.join(out_dir, f"{kernel}.so")
+    lib = os.path.join(out_dir, f"{source}.so")
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, cu], check=True,
                    capture_output=True, text=True)
     return ctypes.CDLL(lib)
@@ -201,6 +278,39 @@ def _conv_cases(iters: int):
             return start.elapsed_time(end) / iters
 
         yield [b, *dhw, c, o], check, time_it, {"unit": "ms"}
+
+
+def _conv_dhwc_cases(iters: int):
+    for b, dhw, c, o in CONV_DHWC_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(b, *dhw, c, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(3, 3, 3, c, o, device="cuda", generator=g) * (27 * c) ** -0.5
+        pro = (torch.randn(b, c, device="cuda", generator=g) * 0.5,
+               torch.rand(b, c, device="cuda", generator=g) + 0.5)
+        for form, args in (("conv", (None, False, False)), ("fused", (pro, True, True))):
+
+            def call(x=x, w=w, args=args):
+                return conv_cuda.launch(x, w, conv_cuda.DHWC, *args)
+
+            def check(x=x, w=w, args=args, call=call):
+                got = call()[0].float()
+                want = fused_conv_cuda.conv3x3x3_fused_reference(
+                    x, w, prologue=args[0], act=args[1]).float()
+                return bool(((got - want).abs() <= 2e-2 + 1.6e-2 * want.abs()).all())
+
+            def time_it(call=call):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                call()
+                torch.cuda._sleep(1_000_000 * iters)  # as for attention: device time
+                start.record()
+                for _ in range(iters):
+                    call()
+                end.record()
+                torch.cuda.synchronize()
+                return start.elapsed_time(end) / iters
+
+            yield [b, *dhw, c, o], check, time_it, {"unit": "ms", "form": form}
 
 
 def _attn_cases(iters: int):
@@ -261,29 +371,31 @@ def _dw_cases(iters: int):
 def run(kernel: str, iters: int) -> List[dict]:
     names = list(VARIANTS[kernel])
     libs = {n: build(kernel, n, VARIANTS[kernel][n]) for n in names}
-    committed = _build.LIBRARIES.get(kernel)
+    source = SOURCES.get(kernel, kernel)
+    committed = _build.LIBRARIES.get(source)
     card = torch.cuda.get_device_name(0)
     rows = []
     cases = {"tiled_matmul": lambda: _mm_cases(iters),
              "conv3": lambda: _conv_cases(max(iters // 8, 3)),
+             "conv3_dhwc": lambda: _conv_dhwc_cases(max(iters // 4, 3)),
              "window_attention": lambda: _attn_cases(iters),
              "dwconv3": lambda: _dw_cases(iters)}[kernel]()
     try:
         for shape, check, time_it, extra in cases:
             for n in names:
-                _build.LIBRARIES._libs[kernel] = libs[n]
+                _build.LIBRARIES._libs[source] = libs[n]
                 if not check():
                     raise RuntimeError(f"variant {n!r} disagrees with the plain version at {shape}")
             for pass_, order in enumerate((names, names[::-1])):
                 for n in order:
-                    _build.LIBRARIES._libs[kernel] = libs[n]
+                    _build.LIBRARIES._libs[source] = libs[n]
                     row = {"kernel": kernel, "variant": n, "shape": shape, "pass": pass_,
                            "time": time_it(), **extra, "device": card}
                     print(json.dumps(row), flush=True)
                     rows.append(row)
             torch.cuda.empty_cache()
     finally:
-        _build.LIBRARIES._libs[kernel] = committed
+        _build.LIBRARIES._libs[source] = committed
     return rows
 
 
