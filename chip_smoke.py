@@ -31,8 +31,12 @@ Phases, each of which must pass:
      against its plain version at the 16 convs of the 8 res blocks of a
      batch-8 forward and the JAX tests' shapes, fp32 and bf16, with
      `F.conv3d` (cuDNN) as the library time;
-  7. the fused CCF-FFN tail (`csrc/ffn_tail.cu`) against its plain version
-     at the 8 tails of a batch-8 forward and one odd shape;
+  7. the CCF-FFN tail (`csrc/ffn_tail.cu`) against its plain version at the
+     8 tails of a batch-8 forward and one odd shape: bf16 on `split_wgmma`
+     (the stencil's TMA ring with its bias, then `ln_gelu_dense`: LayerNorm,
+     GELU and the Dense on TMA + wgmma), fp32 on the one-launch kernel; and
+     `ln_gelu_dense` alone against its plain version, timed with its own
+     bound;
   8. the conv-block path: one batch-8 128³ bf16 flagship forward with its 8
      `UnetResBlock`s and 8 `CCF_FFN`s captured by hooks, then every block
      again through the fused conv (`res_block_fused_module`), through the
@@ -41,8 +45,9 @@ Phases, each of which must pass:
      module's own output; launches are counted over that run, the conv
      kernel's also per design (the 16 (D, H, C, W) convs on the (D, H, C,
      W) TMA design, the 30 channels-last ones with C % 8 == 0 on the
-     channels-last TMA design, the 2 with C = 4 on the halo kernel), and
-     each block's time on each path is printed;
+     channels-last TMA design, the 2 with C = 4 on the halo kernel), the 8
+     tails all `split_wgmma` (8 stencil launches on the TMA ring, 8 of
+     `ln_gelu_dense`), and each block's time on each path is printed;
   9. the int8 probe's path: the bf16 → fp32 (TMA + wgmma) and int8 → int32
      (mma.sync) tiled-matmul kernels (`csrc/tiled_matmul.cu`) against their
      plain version at the probe's shapes and odd ones, in all four (type,
@@ -122,6 +127,8 @@ FFN_ODD_SHAPE = (2, (5, 6, 7), 64, 16)
 # 27 multiply-adds of the stencil (54), the bias (1), LayerNorm (sum, centre,
 # square-add, scale, shift: 8) and GELU (about 12 with its erf)
 FFN_FP32_OPS_PER_ELEMENT = 75
+# the same for `ln_gelu_dense` alone: LayerNorm (8) and GELU (12)
+LGD_FP32_OPS_PER_ELEMENT = 20
 # kernel vs plain version: fp32 sums in another order (TF32 off); in bf16
 # both sides round an fp32 result to bf16 (2^-7 relative) and attention
 # rounds its probabilities to bf16 before PV at other points
@@ -517,24 +524,39 @@ def check_conv(cc, fc):
 
 
 def check_ffn_tail(ft):
-    """Phase 7: ffn_tail.cu against `ffn_tail_reference`."""
+    """Phase 7: ffn_tail.cu against `ffn_tail_reference` (bf16 on
+    `split_wgmma`: the stencil ring, then `ln_gelu_dense`; fp32 on the
+    one-launch kernel), and `ln_gelu_dense` alone against its plain version
+    on the stencil's bf16 output. At the main shapes, the times of the whole
+    tail and of `ln_gelu_dense`, each beside its plain version and its bound
+    (the tail's is that of one pass over h1; `split_floor_ms` adds the
+    stencil's bytes to `ln_gelu_dense`'s bound)."""
     dev = torch.device("cuda")
-    rows, ok = [], True
+    rows, lgd_rows, ok = [], [], True
     for b, dhw, ch, c in FFN_MAIN_SHAPES + [FFN_ODD_SHAPE]:
         g = torch.Generator(device=dev).manual_seed(SEED)
         h1 = torch.randn(b, *dhw, ch, device=dev, generator=g)
         r = lambda *s, scale=1.0: torch.randn(*s, device=dev, generator=g) * scale
         params = (r(3, 3, 3, ch, scale=0.2), r(ch, scale=0.1), 1 + r(ch, scale=0.1),
                   r(ch, scale=0.1), r(ch, c, scale=ch**-0.5), r(c, scale=0.1))
-        row = {"kernel": "ffn_tail", "shape": [b, *dhw, ch, c]}
+        shape = [b, *dhw, ch, c]
+        row = {"kernel": "ffn_tail", "shape": shape, "design": ft.design(torch.bfloat16, ch, c)}
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
             hh = h1.to(dt)
+            design = ft.design(dt, ch, c)
+            before = ft.design_launches[design]
             good, err = within(ft.ffn_tail(hh, *params), ft.ffn_tail_reference(hh, *params), name)
-            ok &= good
+            ok &= good and ft.design_launches[design] == before + 1
             row[f"max_err_{name}"] = err
+        hh = h1.to(torch.bfloat16)
+        y = ft.dwconv3(hh, params[0], params[1])
+        lgd = {"kernel": "ln_gelu_dense", "shape": shape}
+        good, lgd["max_err_bfloat16"] = within(ft.ln_gelu_dense(y, *params[2:]),
+                                               ft.ln_gelu_dense_reference(y, *params[2:]),
+                                               "bfloat16")
+        ok &= good
         if (b, dhw, ch, c) in FFN_MAIN_SHAPES:
-            hh = h1.to(torch.bfloat16)
             vox = b * int(np.prod(dhw))
             nbytes = 2 * vox * (ch + c) + 4 * 30 * ch + 2 * ch * c + 4 * c
             t_ops = max(FFN_FP32_OPS_PER_ELEMENT * vox * ch / FP32_FLOPS,
@@ -543,11 +565,25 @@ def check_ffn_tail(ft):
             row.update({"kernel_ms": cuda_ms(lambda: ft.ffn_tail(hh, *params), iters=10),
                         "plain_ms": cuda_ms(lambda: ft.ffn_tail_reference(hh, *params), iters=5),
                         "library_ms": None, "bound_ms": bms, "bound_by": by})
+            lgd_bytes = 2 * vox * (ch + c) + 4 * 2 * ch + 2 * ch * c + 4 * c
+            lgd_ops = max(LGD_FP32_OPS_PER_ELEMENT * vox * ch / FP32_FLOPS,
+                          2 * vox * ch * c / BF16_TENSOR_FLOPS)
+            lbms, lby = bound(lgd_bytes, lgd_ops)
+            lgd.update({"kernel_ms": cuda_ms(lambda: ft.ln_gelu_dense(y, *params[2:]), iters=10),
+                        "plain_ms": cuda_ms(lambda: ft.ln_gelu_dense_reference(y, *params[2:]),
+                                            iters=5),
+                        "library_ms": None, "bound_ms": lbms, "bound_by": lby})
+            # the two launches' floor: the stencil's bytes (h1 in, y out) and
+            # ln_gelu_dense's bound
+            row["split_floor_ms"] = (2 * 2 * vox * ch + 4 * 28 * ch) / HBM_BYTES_PER_S * 1e3 + lbms
+            row["ln_gelu_dense_ms"] = lgd["kernel_ms"]
         log(json.dumps(row))
+        log(json.dumps(lgd))
         rows.append(row)
-        del h1
+        lgd_rows.append(lgd)
+        del h1, hh, y
         torch.cuda.empty_cache()
-    return ok, rows
+    return ok, rows, lgd_rows
 
 
 def path_err(got, want):
@@ -564,7 +600,7 @@ def path_err(got, want):
     return out["outside_tol"] == 0 and out["rel_rms"] <= BLOCK_REL_RMS, out
 
 
-def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
+def run_conv_block_path(create_waveformer, Config, cc, fc, ft, dc):
     """Phase 8: the flagship's 8 UnetResBlocks and 8 CCF-FFN tails on the
     kernels, each against the module's own output in one bf16 forward."""
     from waveformer_tpu_torch.models.conv_blocks import UnetResBlock
@@ -599,7 +635,10 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
         cc.launches[k] = 0
     for k in cc.design_launches:
         cc.design_launches[k] = 0
-    fc.launches = ft.launches = 0
+    fc.launches = ft.launches = ft.ln_gelu_dense_launches = 0
+    for d in (ft.design_launches, dc.design_launches):
+        for k in d:
+            d[k] = 0
     rows = []
     with torch.inference_mode():
         for name, m, xin, want in blocks:
@@ -622,10 +661,16 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
                          **{f"{k}_fused": v for k, v in err.items()}})
         torch.cuda.synchronize()
     counts = {"conv3x3x3_fused": fc.launches, "ffn_tail": ft.launches,
+              "ln_gelu_dense": ft.ln_gelu_dense_launches,
               "conv3x3x3_same": cc.launches["conv3x3x3_same"] + cc.launches["conv3x3x3_batched"],
               "conv3x3x3_cw": cc.launches["conv3x3x3_cw"] + cc.launches["conv3x3x3_same_v2"]}
-    ok &= counts == {"conv3x3x3_fused": 16, "ffn_tail": 8, "conv3x3x3_same": 16,
-                     "conv3x3x3_cw": 16}
+    ok &= counts == {"conv3x3x3_fused": 16, "ffn_tail": 8, "ln_gelu_dense": 8,
+                     "conv3x3x3_same": 16, "conv3x3x3_cw": 16}
+    # the 8 tails on the bf16 split design: each one stencil launch on the
+    # TMA ring, then one ln_gelu_dense
+    tail_designs = {"ffn_tail": dict(ft.design_launches), "dwconv3": dict(dc.design_launches)}
+    ok &= tail_designs == {"ffn_tail": {"fp32": 0, "split_wgmma": 8},
+                           "dwconv3": {"vector": 0, "tma_ring": 8}}
     # every conv3.cu launch by design: the fused and DHWC convs with C % 8 ==
     # 0 on the channels-last TMA kernel, the two with C = 4 (encoder1's
     # first conv) on the halo kernel, the 16 (D, H, C, W) convs on the (D, H,
@@ -647,6 +692,7 @@ def run_conv_block_path(create_waveformer, Config, cc, fc, ft):
             row["module_ms"] = cuda_ms(lambda: m(xin), iters=3, warmup=1)
             log(json.dumps(row))
     log(json.dumps({"check": "conv_block_path", "launches": counts, "conv3_designs": designs,
+                    "tail_designs": tail_designs,
                     "fused_ms": sum(r["fused_ms"] for r in rows),
                     "module_ms": sum(r["module_ms"] for r in rows)}))
     del captured, blocks, ffns
@@ -800,10 +846,10 @@ def main():
     results.update(conv_rows)
     if not ok:
         failed.append("conv3")
-    ok, results["ffn_tail"] = check_ffn_tail(ft)
+    ok, results["ffn_tail"], results["ln_gelu_dense"] = check_ffn_tail(ft)
     if not ok:
         failed.append("ffn_tail")
-    ok, block_launches = run_conv_block_path(create_waveformer, Config, cc, fc, ft)
+    ok, block_launches = run_conv_block_path(create_waveformer, Config, cc, fc, ft, dc)
     if not ok:
         failed.append("conv_block_path")
     launches.update(block_launches)
@@ -855,7 +901,11 @@ def main():
                  design=cc.design(torch.bfloat16, cc.DHCW, CONV_MAIN_SHAPES[2][1][2],
                                   CONV_MAIN_SHAPES[2][2]), **cudnn),
         headline(results["ffn_tail"], "ffn_tail", "waveformer_tpu_torch/csrc/ffn_tail.cu",
-                 "tools/exp_ffn_pallas.py:149"),
+                 "tools/exp_ffn_pallas.py:149",
+                 design=ft.design(torch.bfloat16, *FFN_MAIN_SHAPES[0][2:])),
+        headline(results["ln_gelu_dense"], "ln_gelu_dense",
+                 "waveformer_tpu_torch/csrc/ffn_tail.cu", "tools/exp_ffn_pallas.py:149",
+                 part_of="ffn_tail (split_wgmma, after dwconv3)"),
         headline(results["conv3x3x3_fused"], "conv3x3x3_fused", conv_src,
                  "tools/exp_fused_conv.py:120",
                  design=cc.design(torch.bfloat16, cc.DHWC, CONV_MAIN_SHAPES[2][1][2],

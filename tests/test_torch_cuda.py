@@ -325,6 +325,63 @@ class TestConvKernelsOnCard:
         assert (dict(tcc.launches), tfc.launches, tft.launches) == before
 
 
+# (Ch, C) of `ln_gelu_dense`: the card tests' narrow widths, then the four
+# flagship tails (weight resident at 192 → 48 and 384 → 96, streamed above)
+LGD_WIDTHS = [(16, 8), (64, 16), (192, 48), (384, 96), (768, 192), (1536, 384)]
+
+
+def _lgd_inputs(m, ch, c, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, device=device, generator=g)
+    y = (r(m, ch) + 0.3).to(torch.bfloat16)
+    return y, 1 + 0.1 * r(ch), 0.1 * r(ch), r(ch, c) * ch**-0.5, 0.1 * r(c)
+
+
+@pytest.mark.cuda
+class TestLnGeluDenseOnCard:
+    # M = 420 (the odd tail shape's rows, ragged 64-row blocks) and 4096 + 37
+    @pytest.mark.parametrize("m", [420, 4096 + 37])
+    @pytest.mark.parametrize("ch,c", LGD_WIDTHS)
+    def test_matches_plain(self, cuda_device, m, ch, c):
+        args = _lgd_inputs(m, ch, c, cuda_device, seed=ch + c)
+        before = tft.ln_gelu_dense_launches
+        got = tft.ln_gelu_dense(*args)
+        want = tft.ln_gelu_dense_reference(*args)
+        torch.cuda.synchronize()
+        assert tft.ln_gelu_dense_launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == (m, c)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=2e-2)
+
+    @pytest.mark.parametrize("ch,c", [(192, 48), (1536, 384)])
+    def test_bit_identical(self, cuda_device, ch, c):
+        args = _lgd_inputs(4096 + 37, ch, c, cuda_device, seed=1)
+        assert torch.equal(tft.ln_gelu_dense(*args), tft.ln_gelu_dense(*args))
+
+    def test_design_rule_matches_library(self, cuda_device):
+        for dtype in (torch.float32, torch.bfloat16):
+            for ch, c in LGD_WIDTHS + [(24, 8), (48, 40)]:
+                assert tft.library_design(dtype, ch, c) == tft.design(dtype, ch, c), (dtype, ch, c)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_tail_counts_its_launches(self, cuda_device, dtype):
+        args = _lgd_inputs(4, 64, 16, cuda_device)
+        h1 = torch.randn(2, 5, 6, 7, 64, device=cuda_device).to(dtype)
+        dw = (torch.randn(3, 3, 3, 64, device=cuda_device) * 0.2, 0.1 * args[2])
+        name = tft.design(dtype, 64, 16)
+        before = (tft.launches, dict(tft.design_launches), tft.ln_gelu_dense_launches,
+                  tdc.design_launches["tma_ring"])
+        got = tft.ffn_tail(h1, *dw, *args[1:])
+        torch.cuda.synchronize()
+        split = int(name == "split_wgmma")
+        assert tft.launches == before[0] + 1
+        assert tft.design_launches[name] == before[1][name] + 1
+        assert tft.ln_gelu_dense_launches == before[2] + split
+        assert tdc.design_launches["tma_ring"] == before[3] + split
+        want = tft.ffn_tail_reference(h1, *dw, *args[1:])
+        rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1.6e-2, 2e-2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
 # bf16 (D, H, C, W) on the TMA + wgmma design: every flagship W extent, C and
 # O, at B = 2 with D = 3 and a one-plane D (H = 5 and 9: ragged row blocks)
 TMA_W, TMA_C, TMA_O = [16, 32, 64, 128], [4, 48, 96], [48, 96, 192]

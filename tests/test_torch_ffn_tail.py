@@ -1,4 +1,4 @@
-"""The port's fused CCF-FFN tail against JAX (`tools/exp_ffn_pallas.py`).
+"""The port's CCF-FFN tail against JAX (`tools/exp_ffn_pallas.py`).
 
 On the CPU `ffn_tail` runs its plain PyTorch version; it is held against
 the JAX Pallas kernel in interpret mode and against the JAX composition
@@ -7,7 +7,14 @@ the JAX Pallas kernel in interpret mode and against the JAX composition
 Gradients go through the plain composition on both sides. `ffn_tail_module`
 on a port `CCF_FFN` equals the module's own forward and the JAX module's.
 
-The CUDA kernel is held against the plain version on the card by
+The bf16 tail's second launch, `ln_gelu_dense` (LayerNorm → GELU → Dense
+over rows of the stencil's output), has a plain version of its own, held
+here against the JAX pieces the tail uses (`_ln_f32`, `_gelu_f32` and the
+einsum of `_ffn_tail_reference`) in fp32 at 1e-4, at row counts that are no
+multiple of the kernel's 64-row blocks. The design rule (bf16 on
+`split_wgmma`, fp32 on `fp32`) is pinned without loading a library.
+
+The CUDA kernels are held against the plain versions on the card by
 `tests/test_torch_cuda.py` and `chip_smoke.py`.
 """
 
@@ -20,6 +27,8 @@ import torch
 from tools import exp_ffn_pallas as jft
 from waveformer_tpu.models import layers as jl
 from waveformer_tpu_torch.models import layers as tl
+from waveformer_tpu_torch.models.common import gelu
+from waveformer_tpu_torch.ops import dwconv_cuda as tdc
 from waveformer_tpu_torch.ops import ffn_tail_cuda as tft
 from waveformer_tpu_torch.utils import jax_params as jp
 
@@ -90,3 +99,72 @@ class TestFFNTail:
         assert not tft.supported(24, 8, torch.bfloat16)  # 16-deep K steps
         assert not tft.supported(32, 5, torch.bfloat16)  # 8-wide output tiles
         assert not tft.supported(20, 8, torch.float32)   # whole 8-channel vectors
+
+
+def _lgd_args(m, ch, c_out, seed):
+    """y (m, Ch) and the LayerNorm and Dense parameters, seeded numpy fp32;
+    y has a nonzero mean per row, as the stencil's output with its bias."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, loc=0.0: (loc + scale * rng.standard_normal(s)).astype(np.float32)
+    return [f(m, ch, loc=0.3), f(ch, scale=0.1, loc=1.0), f(ch, scale=0.1),
+            f(ch, c_out, scale=ch**-0.5), f(c_out, scale=0.1)]
+
+
+class TestLnGeluDense:
+    # M = 100, 70, 130: ragged 64-row blocks; the three narrowest flagship-like widths
+    @pytest.mark.parametrize("m,ch,c_out", [(100, 16, 8), (70, 64, 16), (130, 192, 48)])
+    def test_matches_jax_pieces(self, m, ch, c_out):
+        y, ln_s, ln_b, fc_w, fc_b = _lgd_args(m, ch, c_out, seed=ch)
+        a = jft._gelu_f32(jft._ln_f32(jnp.asarray(y), ln_s, ln_b, EPS))
+        want = jnp.einsum("...c,co->...o", a, jnp.asarray(fc_w)) + fc_b
+        ts = [torch.from_numpy(v) for v in (y, ln_s, ln_b, fc_w, fc_b)]
+        before = tft.ln_gelu_dense_launches
+        got = tft.ln_gelu_dense(*ts, eps=EPS)
+        assert tft.ln_gelu_dense_launches == before  # CPU tensors take the plain version
+        assert got.shape == (m, c_out) and got.dtype == torch.float32
+        _close(got, want)
+        _close(tft.ln_gelu_dense_reference(*ts, EPS), want)
+
+    def test_keeps_leading_axes(self):
+        y, ln_s, ln_b, fc_w, fc_b = _lgd_args(2 * 3 * 5 * 7, 32, 8, seed=5)
+        ts = [torch.from_numpy(v) for v in (y, ln_s, ln_b, fc_w, fc_b)]
+        flat = tft.ln_gelu_dense(*ts, eps=EPS)
+        got = tft.ln_gelu_dense(ts[0].reshape(2, 3, 5, 7, 32), *ts[1:], eps=EPS)
+        assert got.shape == (2, 3, 5, 7, 8)
+        torch.testing.assert_close(got.reshape(-1, 8), flat, rtol=0, atol=0)
+
+    def test_split_composes_to_the_tail(self):
+        # the bf16 design's two launches: dwconv3 with its bias, then ln_gelu_dense
+        a = [torch.from_numpy(v) for v in _args((2, 3, 5, 7, 32), 16, seed=6)]
+        h1, dw_w, dw_b, ln_s, ln_b, fc_w, fc_b = a
+        y = tdc.dwconv3_reference(h1, dw_w, dw_b)
+        got = tft.ln_gelu_dense_reference(y, ln_s, ln_b, fc_w, fc_b, EPS)
+        _close(got, tft.ffn_tail_reference(*a, EPS).numpy())
+
+    def test_rounds_a_and_out_to_the_input_dtype(self):
+        y, ln_s, ln_b, fc_w, fc_b = (torch.from_numpy(v) for v in _lgd_args(40, 64, 16, seed=7))
+        yb = y.to(torch.bfloat16)
+        got = tft.ln_gelu_dense_reference(yb, ln_s, ln_b, fc_w, fc_b, EPS)
+        a = gelu(torch.nn.functional.layer_norm(yb.float(), (64,), ln_s, ln_b, EPS))
+        want = (a.to(torch.bfloat16).float() @ fc_w.to(torch.bfloat16).float() + fc_b)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
+
+
+class TestDesign:
+    @pytest.mark.parametrize("ch,c", [(16, 8), (64, 16), (192, 48), (384, 96), (768, 192),
+                                      (1536, 384)])
+    def test_design_rule(self, ch, c):
+        assert tft.design(torch.bfloat16, ch, c) == "split_wgmma"
+        assert tft.design(torch.float32, ch, c) == "fp32"
+
+    def test_designs_are_counted(self):
+        assert tft.DESIGNS == ("fp32", "split_wgmma")
+        assert set(tft.design_launches) == set(tft.DESIGNS)
+
+    def test_design_needs_no_library(self, monkeypatch):
+        def refuse(name):
+            raise AssertionError(f"design() loaded the {name} library")
+
+        monkeypatch.setattr(tft._build.LIBRARIES, "get", refuse)
+        assert tft.design(torch.bfloat16, 192, 48) == "split_wgmma"

@@ -1,10 +1,11 @@
 """Time design variants of a hand-written kernel against the committed source.
 
-    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3|conv3_dhwc|window_attention|dwconv3] [--iters 32]
+    python -m waveformer_tpu_torch.tools.design_variants [--kernel tiled_matmul|conv3|conv3_dhwc|window_attention|dwconv3|ffn_tail] [--iters 32]
 
 A variant is the committed `csrc/<source>.cu` with a few text substitutions
 (tile sizes, ring depth, warpgroups, the exponential, D segments, the
-halo's layout, the prologue's overlap and grouping), listed in `VARIANTS`; `conv3` is the (D, H, C, W)
+halo's layout, the prologue's overlap and grouping, the GELU, the split of
+shared memory between y and a streamed weight), listed in `VARIANTS`; `conv3` is the (D, H, C, W)
 design of `csrc/conv3.cu` and `conv3_dhwc` its channels-last TMA design,
 timed in both forms (the conv alone, and with the InstanceNorm prologue and
 the statistics). Each is built
@@ -30,6 +31,7 @@ import torch
 from waveformer_tpu_torch.ops import _build
 from waveformer_tpu_torch.ops import conv_cuda
 from waveformer_tpu_torch.ops import dwconv_cuda
+from waveformer_tpu_torch.ops import ffn_tail_cuda
 from waveformer_tpu_torch.ops import fused_conv_cuda
 from waveformer_tpu_torch.ops import tiled_matmul_cuda as tm
 from waveformer_tpu_torch.ops.attention_cuda import window_attention, window_attention_reference
@@ -114,6 +116,33 @@ _CL_HALVES = [
      "      wft::make_map_bf16(&xmap, p.x, 5, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_NONE);"),
 ]
 
+# ffn_tail.cu's first plan: one block an SM, no N groups; the weight
+# resident where it fits beside two stages of y, else y in a ring of up to 4
+# stages (2 at 768 → 192, 1 at 1536 → 384) and the weight in what is left (2
+# chunks), row block i + stages − 1 loaded before block i's weight
+_FFN_FIRST_PLAN = [
+    ("constexpr int kPairBN = 48;", "constexpr int kPairBN = 0;"),
+    ("""    p.stages = 1;
+    p.wslots = (int)std::min<long long>(kMaxWSlots, (one - stage) / chunk);
+    if (p.wslots < 2) return cudaErrorInvalidValue;  // Ch too wide for one stage""",
+     """    p.stages = (int)std::min<long long>(kMaxStages, (one - 2 * chunk) / stage);
+    p.wslots = (int)std::min<long long>(2, (one - p.stages * stage) / chunk);
+    if (p.stages < 1) return cudaErrorInvalidValue;"""),
+    ("  p.ng = (int)std::max<long long>(1, std::min<long long>(p.nt, slots / p.rblocks));",
+     "  p.ng = 1;"),
+    ("""        const int ahead = min(p.wslots, nchunks);
+        long long wc = 0;
+        for (long long i = 0; i < nrb; ++i) {
+          for (int c = 0; c < nchunks; ++c, ++wc) {
+            if (c == ahead) load_y(i);""",
+     """        for (long long i = 0; i < nrb && i < p.stages - 1; ++i) load_y(i);
+        long long wc = 0;
+        for (long long i = 0; i < nrb; ++i) {
+          if (i + p.stages - 1 < nrb) load_y(i + p.stages - 1);
+          for (int c = 0; c < nchunks; ++c, ++wc) {"""),
+    ("""          if (ahead == nchunks) load_y(i);\n""", ""),
+]
+
 # name → substitutions (old, new) on the committed source; the first is it
 VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
     "tiled_matmul": {
@@ -185,6 +214,13 @@ VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
             ("    wft::wgmma_wait<1>();\n    if (s > 0) wft::mbar_arrive(empty + (s - 1) % q.stages);",
              "    wft::wgmma_wait<2>();\n    if (s > 1) wft::mbar_arrive(empty + (s - 2) % q.stages);")],
     },
+    "ffn_tail": {
+        "branch-free GELU, 2 blocks an SM at 192 -> 48, N groups at 8^3 (committed)": [],
+        "erff GELU (the first design)": [
+            ("gelu_poly(z0), gelu_poly(z1)", "gelu_erf(z0), gelu_erf(z1)")],
+        "1 block an SM, no N groups, streamed weight in 2 y stages + 2 chunks (the first design)":
+            _FFN_FIRST_PLAN,
+    },
     "dwconv3": {
         "whole-D march per tile (committed)": [],
         "D cut below 4 tiles per block (the first ring design)": _dw_segments(4),
@@ -203,6 +239,9 @@ CONV_SHAPES = [(8, (128,) * 3, 4, 48), (8, (128,) * 3, 96, 48), (8, (64,) * 3, 9
 # (B, (D, H, W), C, O) of the channels-last TMA design: the largest and the
 # smallest res-block convs of a batch-8 forward
 CONV_DHWC_SHAPES = [(8, (128,) * 3, 96, 48), (8, (16,) * 3, 384, 192)]
+# (B, (D, H, W), Ch, C) of the flagship's CCF-FFN tails (chip_smoke.FFN_MAIN_SHAPES)
+FFN_SHAPES = [(8, (64,) * 3, 192, 48), (8, (32,) * 3, 384, 96), (8, (16,) * 3, 768, 192),
+              (8, (8,) * 3, 1536, 384)]
 # the source each kernel's variants edit
 SOURCES = {"conv3_dhwc": "conv3"}
 
@@ -368,6 +407,36 @@ def _dw_cases(iters: int):
         yield list(shape), check, time_it, {"unit": "ms"}
 
 
+def _ffn_cases(iters: int):
+    """`ln_gelu_dense` (the bf16 tail's second launch) on the stencil's
+    output at the four tails of a batch-8 forward."""
+    for b, dhw, ch, c in FFN_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        y = (torch.randn(b, *dhw, ch, device="cuda", generator=g) + 0.3).to(torch.bfloat16)
+        args = (1 + 0.1 * torch.randn(ch, device="cuda", generator=g),
+                0.1 * torch.randn(ch, device="cuda", generator=g),
+                torch.randn(ch, c, device="cuda", generator=g) * ch**-0.5,
+                0.1 * torch.randn(c, device="cuda", generator=g))
+
+        def check(y=y, args=args):
+            got = ffn_tail_cuda.ln_gelu_dense(y, *args).float()
+            want = ffn_tail_cuda.ln_gelu_dense_reference(y, *args).float()
+            return bool(((got - want).abs() <= 2e-2 + 1.6e-2 * want.abs()).all())
+
+        def time_it(y=y, args=args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ffn_tail_cuda.ln_gelu_dense(y, *args)
+            torch.cuda._sleep(1_000_000 * iters)  # as for attention: device time
+            start.record()
+            for _ in range(iters):
+                ffn_tail_cuda.ln_gelu_dense(y, *args)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+
+        yield [b, *dhw, ch, c], check, time_it, {"unit": "ms"}
+
+
 def run(kernel: str, iters: int) -> List[dict]:
     names = list(VARIANTS[kernel])
     libs = {n: build(kernel, n, VARIANTS[kernel][n]) for n in names}
@@ -379,7 +448,8 @@ def run(kernel: str, iters: int) -> List[dict]:
              "conv3": lambda: _conv_cases(max(iters // 8, 3)),
              "conv3_dhwc": lambda: _conv_dhwc_cases(max(iters // 4, 3)),
              "window_attention": lambda: _attn_cases(iters),
-             "dwconv3": lambda: _dw_cases(iters)}[kernel]()
+             "dwconv3": lambda: _dw_cases(iters),
+             "ffn_tail": lambda: _ffn_cases(iters)}[kernel]()
     try:
         for shape, check, time_it, extra in cases:
             for n in names:
