@@ -48,13 +48,16 @@ Phases, each of which must pass:
      channels-last TMA design, the 2 with C = 4 on the halo kernel), the 8
      tails all `split_wgmma` (8 stencil launches on the TMA ring, 8 of
      `ln_gelu_dense`), and each block's time on each path is printed;
-  9. the int8 probe's path: the bf16 → fp32 (TMA + wgmma) and int8 → int32
-     (mma.sync) tiled-matmul kernels (`csrc/tiled_matmul.cu`) against their
+  9. the int8 probe's path: the bf16 → fp32 (`tma_wgmma`) and int8 → int32
+     (`tma_wgmma_s8`: the `w_kmajor` transpose, then TMA + wgmma with TMA
+     stores) tiled-matmul kernels (`csrc/tiled_matmul.cu`) against their
      plain version at the probe's shapes and odd ones, in all four (type,
      perturbation) variants
-     and three values of s[0] (int8 bit-equal), then the probe's entry point
+     and three values of s[0] (int8 bit-equal), `w_kmajor` against its plain
+     version, then the probe's entry point
      `waveformer_tpu_torch.tools.exp_int8_mxu.run` with exact launch counts
-     and the kernels' times beside cuBLAS's.
+     (per product and one transpose per int8 product; each type's design as
+     the built library reports it) and the kernels' times beside cuBLAS's.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -744,6 +747,16 @@ def check_tiled_matmul(tm):
                     del x, w, got, want
             log(json.dumps(row))
             rows.append(row)
+        # the int8 product's K-major operand, bit for bit
+        _, _, w, _ = tiled_matmul_inputs("int8", m, k, n, 0.0, tm)
+        wt, want = tm.w_kmajor(w), tm.w_kmajor_reference(w)
+        torch.cuda.synchronize()
+        good = wt.is_contiguous() and wt.shape == want.shape and torch.equal(wt, want)
+        ok &= good
+        err = float((wt.int() - want.int()).abs().max()) if wt.shape == want.shape else np.nan
+        row = {"kernel": "w_kmajor", "shape": [k, n], "max_err": err}
+        log(json.dumps(row))
+        rows.append(row)
     return ok, rows
 
 
@@ -766,8 +779,14 @@ def run_int8_probe(tm, probe):
         tm.launches[k] = 0
     rows = probe.run(iters=TM_ITERS)
     counts = dict(tm.launches)
+    # one design per input type, as the built library reports it
+    designs = {kind: tm.design(dt) for kind, dt in (("bf16", torch.bfloat16),
+                                                     ("int8", torch.int8))}
     per_kind = len(probe.SHAPES) * (TM_ITERS + 1)  # device_time's warm-up and 64 calls
-    ok = counts == {"tiled_matmul_bf16": per_kind, "tiled_matmul_int8": per_kind}
+    # every int8 product on the new design, after one transpose of its w
+    ok = counts == {"tiled_matmul_bf16": per_kind, "tiled_matmul_int8": per_kind,
+                    "w_kmajor": per_kind}
+    ok &= designs == {"bf16": "tma_wgmma", "int8": "tma_wgmma_s8"}
     for r in rows:
         ok &= all(np.isfinite(r[k]) and r[k] > 0 for k in ("us", "top_s", "library_us"))
         log(json.dumps(r))
@@ -787,7 +806,18 @@ def run_int8_probe(tm, probe):
                         "int8_speedup_kernel": r["int8_speedup_kernel"],
                         "int8_speedup_library": r["int8_speedup_library"], **worst})
         del x, w
-    log(json.dumps({"check": "int8_probe", "launches": counts, "expected_per_kind": per_kind}))
+    # the transpose at the probe's largest w, timed alone, beside its plain version
+    k, n = max(((r["K"], r["N"]) for r in rows), key=lambda kn: kn[0] * kn[1])
+    _, _, w, _ = tiled_matmul_inputs("int8", 16, k, n, 0.0, tm)
+    entries.append({"name": "w_kmajor", "design": "tiled 64 x 64 through shared memory",
+                    "ms": cuda_ms(lambda: tm.w_kmajor(w), iters=64),
+                    "plain_ms": cuda_ms(lambda: tm.w_kmajor_reference(w), iters=64),
+                    "bound_ms": 2 * k * n / probe.HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                    "library_ms": cuda_ms(lambda: w.t().contiguous(), iters=64),
+                    "library_call": "w.t().contiguous()", "shape": [k, n],
+                    "part_of": "tiled_matmul_int8 (tma_wgmma_s8, before each product)"})
+    log(json.dumps({"check": "int8_probe", "launches": counts, "designs": designs,
+                    "expected_per_kind": per_kind}))
     torch.cuda.empty_cache()
     return ok, counts, entries
 
@@ -911,9 +941,10 @@ def main():
                  design=cc.design(torch.bfloat16, cc.DHWC, CONV_MAIN_SHAPES[2][1][2],
                                   CONV_MAIN_SHAPES[2][2]), **cudnn),
         *({"route": "cuda", "source": "waveformer_tpu_torch/csrc/tiled_matmul.cu",
-           "replaces": "tools/exp_int8_mxu.py:26", "launches": launches[e["name"]],
+           "replaces": "tools/exp_int8_mxu.py:37", "launches": launches[e["name"]],
            "max_abs_err": max(v for r in results["tiled_matmul"] if r["kernel"] == e["name"]
-                              for k, v in r.items() if k.startswith("perturb_")),
+                              for k, v in r.items()
+                              if k.startswith("perturb_") or k == "max_err"),
            **e} for e in probe_entries),
     ]}))
     if failed:

@@ -543,8 +543,10 @@ class TestConvChannelsLastTmaOnCard:
 # (M, K, N): a ragged row block with N % 16 == 8, a K tail of half a stage,
 # and one of the int8 probe's shapes
 TM_SHAPES = [(96, 48, 40), (64, 2080, 24), (16384, 2048, 512)]
-# bf16 only: M, N and K that are no multiple of the 128 × 256 × 64 tile
+# M, N and K that are no multiple of the 128 × 256 × 64 (bf16) or 128 × 256
+# × 128-byte (int8) tile; int8 keeps K % 16 == 0 and has N % 16 == 8
 TM_RAGGED = [(1000, 1024, 512), (300, 200, 264)]
+TM_RAGGED_INT8 = [(1000, 1024, 512), (300, 208, 264)]
 
 
 def _tm_inputs(kind, m, k, n, device, seed=0):
@@ -573,6 +575,8 @@ class TestTiledMatmulOnCard:
                                               perturb_out=perturb_out)
             torch.cuda.synchronize()
             assert ttm.launches[f"tiled_matmul_{kind}"] == before[f"tiled_matmul_{kind}"] + 1
+            # int8: one transpose of w per product
+            assert ttm.launches["w_kmajor"] == before["w_kmajor"] + (kind == "int8")
             assert got.dtype == out_dtype and tuple(got.shape) == (m, n)
             if kind == "int8":
                 assert torch.equal(got, want)
@@ -594,9 +598,36 @@ class TestTiledMatmulOnCard:
             scale = (x.float().abs() + abs(s0)) @ w.float().abs() + abs(s0)
             assert bool(((got - want).abs() <= 1e-4 * scale).all())
 
+    @pytest.mark.parametrize("perturb_out", [False, True])
+    @pytest.mark.parametrize("m,k,n", TM_RAGGED_INT8)
+    def test_int8_ragged_tiles(self, cuda_device, m, k, n, perturb_out):
+        x, w = _tm_inputs("int8", m, k, n, cuda_device, seed=1)
+        x[0, :4] = torch.tensor([126, 125, -127, -126], dtype=torch.int8)  # x ⊕ s wraps
+        for s0 in (0.0, 3.7, -2.5):
+            s = torch.zeros(8, device=cuda_device)
+            s[0] = s0
+            before = dict(ttm.launches)
+            got = ttm.tiled_matmul(s, x, w, out_dtype=torch.int32, perturb_out=perturb_out)
+            want = ttm.tiled_matmul_reference(s, x, w, out_dtype=torch.int32,
+                                              perturb_out=perturb_out)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert ttm.launches == {**before, "tiled_matmul_int8": before["tiled_matmul_int8"] + 1,
+                                    "w_kmajor": before["w_kmajor"] + 1}
+            assert ttm.design(torch.int8) == "tma_wgmma_s8"
+
+    @pytest.mark.parametrize("k,n", [(48, 40), (2080, 24), (1024, 512), (208, 264)])
+    def test_w_kmajor_matches_plain(self, cuda_device, k, n):
+        _, w = _tm_inputs("int8", 16, k, n, cuda_device, seed=2)
+        before = ttm.launches["w_kmajor"]
+        got = ttm.w_kmajor(w)
+        torch.cuda.synchronize()
+        assert ttm.launches["w_kmajor"] == before + 1
+        assert got.is_contiguous() and torch.equal(got, ttm.w_kmajor_reference(w))
+
     def test_designs(self, cuda_device):
         assert ttm.design(torch.bfloat16) == "tma_wgmma"
-        assert ttm.design(torch.int8) == "mma_sync"
+        assert ttm.design(torch.int8) == "tma_wgmma_s8"
 
     def test_raises_on_misaligned_k(self, cuda_device):
         s = torch.zeros(8, device=cuda_device)

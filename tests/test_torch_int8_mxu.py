@@ -120,6 +120,19 @@ class TestRefusals:
             tmc._launch(torch.zeros(8), x, w, torch.int32, True)
         assert tmc.launches == before
 
+    @pytest.mark.parametrize("k,n", [(48, 40), (96, 24), (2080, 264)])
+    def test_w_kmajor_on_cpu_is_the_plain_transpose(self, k, n):
+        w = torch.from_numpy(np.random.default_rng(k).integers(-128, 128, (k, n)).astype(np.int8))
+        before = dict(tmc.launches)
+        wt = tmc.w_kmajor(w)
+        assert tmc.launches == before  # the plain version: no launch
+        assert wt.is_contiguous() and tuple(wt.shape) == (n, k)
+        assert torch.equal(wt, w.t()) and torch.equal(wt, tmc.w_kmajor_reference(w))
+        with pytest.raises(ValueError):
+            tmc.w_kmajor(w.to(torch.int16))
+        with pytest.raises(ValueError):  # K % 16 != 0
+            tmc.w_kmajor(w[: k - 8])
+
     def test_supported(self):
         assert tmc.supported(1024, 512, torch.bfloat16)
         assert tmc.supported(2048, 512, torch.int8)

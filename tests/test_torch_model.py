@@ -31,6 +31,7 @@ from waveformer_tpu_torch.models import blocks as tb
 from waveformer_tpu_torch.models import conv_blocks as tcb
 from waveformer_tpu_torch.models import decoder as td
 from waveformer_tpu_torch.models import layers as tl
+from waveformer_tpu_torch.config import Config
 from waveformer_tpu_torch.models import create_waveformer
 from waveformer_tpu_torch.utils import jax_params as jp
 
@@ -165,8 +166,10 @@ def _model_pair(cfg, shape, seed=0):
     jm = JaxWaveformer(**cfg, io_layout="channels_first")
     p = random_params(jm, jnp.asarray(x), seed=seed)
     tm = create_waveformer(cfg, device="cpu", io_layout="channels_first")
+    # the model's default depths where cfg names none (the flagship)
+    depths = {**Config().network.model_kwargs(), **cfg}["depths"]
     tm.load_state_dict(
-        jp.state_dict_from_jax(p, depths=cfg["depths"],
+        jp.state_dict_from_jax(p, depths=depths,
                                hf_refinement=cfg.get("hf_refinement", False)),
         strict=True,
     )

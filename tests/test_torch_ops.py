@@ -58,8 +58,11 @@ class TestWavelet:
         )
 
     def test_channels_first_axes(self):
+        # NCDHW splits D, then H, then W (as the JAX cascade does);
+        # channels-last 5-D input splits W, H, D (the JAX phase path's order,
+        # which rounds otherwise), so the helper is given NCDHW's order here
         x = _rand((2, 6, 8, 4, 3), 2)
-        cl_l, cl_d = twv.dwt3(torch.from_numpy(x))
+        cl_l, cl_d = twv._dwt3_cascade(torch.from_numpy(x), (1, 2, 3), (0, 1, 2))
         cf_l, cf_d = twv.dwt3(torch.from_numpy(x).permute(0, 4, 1, 2, 3), axes=(2, 3, 4))
         np.testing.assert_array_equal(cf_l.permute(0, 2, 3, 4, 1).numpy(), cl_l.numpy())
         np.testing.assert_array_equal(

@@ -1,8 +1,7 @@
 // Shared helpers for the hand-written Hopper kernels: dtype conversion,
 // 8-element vector loads/stores (16 bytes of bf16, 32 bytes of fp32), the
-// bf16 and int8 tensor-core products (mma.sync.m16n8k16 with fp32
-// accumulation, m16n8k32 with int32), ldmatrix, and asynchronous copies to
-// shared memory (cp.async).
+// bf16 tensor-core product (mma.sync.m16n8k16 with fp32 accumulation),
+// ldmatrix, and asynchronous copies to shared memory (cp.async).
 #pragma once
 
 #include <stdint.h>
@@ -72,20 +71,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a·b on one m16n8k32 int8 tile, exact int32 sums. Fragment layout, with
-// g = lane / 4 and t = lane % 4, four int8 per register in memory order:
-// a[0] = A[g][4t..4t+3], a[1] = A[g+8][4t..], a[2] = A[g][4t+16..],
-// a[3] = A[g+8][4t+16..]; b0 = B[4t..4t+3][g], b1 = B[4t+16..4t+19][g];
-// d as for mma_bf16.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

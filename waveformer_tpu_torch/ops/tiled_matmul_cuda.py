@@ -1,9 +1,11 @@
 """Tiled bf16 → fp32 and int8 → int32 matrix product: CUDA kernel wrapper and plain version.
 
 Port of `tools/exp_int8_mxu.py::make`, the Pallas product of the int8
-probe. The kernel is `csrc/tiled_matmul.cu` (see its header for the
-designs: bf16 on TMA + `wgmma`, int8 on `mma.sync`). For x (M, K), w (K, N)
-and s (8,) fp32:
+probe. The kernels are in `csrc/tiled_matmul.cu` (see its header for the
+designs, both on TMA + `wgmma`: bf16 `tma_wgmma`; int8 `tma_wgmma_s8`, which
+first transposes w into a K-major scratch with `w_kmajor_kernel`, since
+8-bit `wgmma` reads both operands K-major). For x (M, K), w (K, N) and s
+(8,) fp32:
 
     bf16 → fp32,  perturb_out=False: out = (x ⊕ bf16(s[0])) @ w   (the probe's bf16 run)
     bf16 → fp32,  perturb_out=True:  out = x @ w + s[0]
@@ -29,18 +31,29 @@ from waveformer_tpu_torch.ops import _build
 PAIRS = {torch.bfloat16: ("tiled_matmul_bf16", torch.float32),
          torch.int8: ("tiled_matmul_int8", torch.int32)}
 
-# per-launch counters, read by chip_smoke.py to prove the probe ran here
-launches = {"tiled_matmul_bf16": 0, "tiled_matmul_int8": 0}
-# the kernel's designs, by the number `wft_tiled_matmul_design` returns
-DESIGNS = ("tma_wgmma", "mma_sync")
+# per-launch counters, read by chip_smoke.py to prove the probe ran here:
+# each product, and `w_kmajor`, the transpose every int8 product launches first
+launches = {"tiled_matmul_bf16": 0, "tiled_matmul_int8": 0, "w_kmajor": 0}
+# the kernel's designs, by the number `wft_tiled_matmul_design` returns (one
+# per input type, so `launches` counts each design's launches)
+DESIGNS = ("tma_wgmma", "tma_wgmma_s8")
+
+
+def _fn(name: str, *argtypes):
+    """The library's C entry `name`, its types set once per loaded library
+    (the host work of a call counts: at the probe's shapes it is close to the
+    kernels' own time)."""
+    fn = getattr(_build.LIBRARIES.get("tiled_matmul"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
 
 
 def design(dtype: torch.dtype) -> str:
-    """The design `csrc/tiled_matmul.cu` launches for this input type (bf16 on
-    TMA + `wgmma`, int8 on `mma.sync`); needs the built library."""
-    fn = _build.LIBRARIES.get("tiled_matmul").wft_tiled_matmul_design
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int]
+    """The design `csrc/tiled_matmul.cu` launches for this input type (bf16
+    `tma_wgmma`, int8 `tma_wgmma_s8`); needs the built library."""
+    fn = _fn("wft_tiled_matmul_design", ctypes.c_int)
     return DESIGNS[fn(int(dtype == torch.int8))]
 
 
@@ -87,23 +100,53 @@ def tiled_matmul_reference(s, x, w, *, out_dtype, perturb_out: bool) -> torch.Te
     return (xs.double() @ w.double()).to(torch.int32)
 
 
+def w_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """wᵀ (N, K) of an int8 w (K, N), contiguous: the K-major operand of the
+    int8 product, which launches the same kernel itself into a fresh scratch
+    on every call (nothing is cached across calls). On the CPU the plain
+    version, on the card `w_kmajor_kernel` alone."""
+    if w.dtype != torch.int8 or w.dim() != 2:
+        raise ValueError(f"w_kmajor takes a 2-D int8 w, got {tuple(w.shape)} {w.dtype}")
+    k, n = w.shape
+    if not supported(k, n, torch.int8):
+        raise ValueError(f"w_kmajor kernel does not take K={k}, N={n}")
+    if w.device.type == "cpu":
+        return w_kmajor_reference(w)
+    w = _build.aligned16(w)
+    wt = torch.empty((n, k), dtype=torch.int8, device=w.device)
+    fn = _fn("wft_w_kmajor", *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 2, ctypes.c_void_p)
+    err = fn(w.data_ptr(), wt.data_ptr(), k, n, torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(err, "w_kmajor launch")
+    launches["w_kmajor"] += 1
+    return wt
+
+
+def w_kmajor_reference(w: torch.Tensor) -> torch.Tensor:
+    """The plain version of `w_kmajor`."""
+    return w.t().contiguous()
+
+
 def _launch(s, x, w, out_dtype, perturb_out: bool) -> torch.Tensor:
     if not (s.is_cuda and x.is_cuda and w.is_cuda) or not (
             s.device == x.device == w.device):
         raise ValueError("tiled_matmul: s, x and w must be CUDA tensors on one device")
     name = PAIRS[x.dtype][0]
+    int8 = x.dtype == torch.int8
     s, x, w = s.contiguous(), _build.aligned16(x), _build.aligned16(w)
     m, k = x.shape
     n = w.shape[1]
+    # int8: the C call launches `w_kmajor` into this scratch, then the product
+    wt = torch.empty((n, k), dtype=torch.int8, device=x.device) if int8 else None
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    fn = _build.LIBRARIES.get("tiled_matmul").wft_tiled_matmul
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    err = fn(int(x.dtype == torch.int8), s.data_ptr(), x.data_ptr(), w.data_ptr(),
-             out.data_ptr(), m, k, n, int(perturb_out),
+    fn = _fn("wft_tiled_matmul", ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 4,
+             ctypes.c_void_p)
+    err = fn(int(int8), s.data_ptr(), x.data_ptr(), w.data_ptr(),
+             wt.data_ptr() if int8 else None, out.data_ptr(), m, k, n, int(perturb_out),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"{name} launch")
     launches[name] += 1
+    if int8:
+        launches["w_kmajor"] += 1
     return out
 
 

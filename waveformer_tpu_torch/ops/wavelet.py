@@ -8,11 +8,18 @@ pywt's zero mode does (`(N + 1) // 2` outputs per level). Any other wavelet
 raises `ValueError`.
 
 The default `axes=(1, 2, 3)` is the channels-last (B, D, H, W, C) layout
-the model uses; pass `axes=(2, 3, 4)` for NCDHW.
+the model uses; pass `axes=(2, 3, 4)` for NCDHW. Both run one per-axis
+cascade, in the JAX op's order for the input: for 5-D input at
+`axes=(1, 2, 3)` the JAX phase path's (analysis W, H, D; synthesis D, H,
+W), else the JAX cascade's (D, H, W; W, H, D). Each step multiplies by
+1/√2 rounded to the input's dtype, so the result is bit-equal to the JAX
+op in fp32 and bf16; the two orders agree with each other only to
+rounding.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Sequence, Tuple
 
@@ -43,17 +50,69 @@ def _haar_split(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]
     odd[axis] = slice(1, None, 2)
     x0 = x[tuple(even)]
     x1 = x[tuple(odd)]
-    return (x0 + x1) * _INV_SQRT2, (x0 - x1) * _INV_SQRT2
+    s = _scale(x.dtype)
+    return (x0 + x1) * s, (x0 - x1) * s
 
 
 def _haar_merge(a: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
     """Inverse of `_haar_split` (output length 2·N along `axis`)."""
-    x0 = (a + d) * _INV_SQRT2
-    x1 = (a - d) * _INV_SQRT2
+    s = _scale(a.dtype)
+    x0 = (a + d) * s
+    x1 = (a - d) * s
     stacked = torch.stack([x0, x1], dim=axis + 1)
     shape = list(a.shape)
     shape[axis] = a.shape[axis] * 2
     return stacked.reshape(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(dtype: torch.dtype) -> float:
+    """1/√2 rounded to `dtype` (0.70703125 in bf16), as the JAX ops take it.
+    A Python float: the product with it rounds once, as JAX's product of two
+    values of the dtype does, and a device tensor made per call would copy
+    from the host and wait for the stream."""
+    return float(torch.tensor(_INV_SQRT2, dtype=dtype))
+
+
+def _dwt3_cascade(
+    x: torch.Tensor, axes: Sequence[int], order: Sequence[int]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Haar analysis one axis at a time, in `order` (positions in `axes`,
+    0/1/2 = D/H/W; the key's character at that position names the band)."""
+    bands = {"???": x}
+    for i in order:
+        split = {}
+        for key, t in bands.items():
+            a, d = _haar_split(t, axes[i])
+            split[key[:i] + "a" + key[i + 1:]] = a
+            split[key[:i] + "d" + key[i + 1:]] = d
+        bands = split
+    return bands["aaa"], {k: bands[k] for k in DETAIL_KEYS}
+
+
+def _idwt3_cascade(
+    lowpass: torch.Tensor,
+    details: Dict[str, torch.Tensor],
+    axes: Sequence[int],
+    order: Sequence[int],
+) -> torch.Tensor:
+    """Haar synthesis one axis at a time, in `order` (as `_dwt3_cascade`)."""
+    bands = {"aaa": lowpass, **details}
+    for i in order:
+        merged = {}
+        for key, t in bands.items():
+            if key[i] == "a":
+                d = bands[key[:i] + "d" + key[i + 1:]]
+                merged[key[:i] + "?" + key[i + 1:]] = _haar_merge(t, d, axes[i])
+        bands = merged
+    return bands["???"]
+
+
+def _jax_order(ndim: int, axes: Sequence[int]) -> Tuple[int, ...]:
+    """The analysis order of the JAX op for this input: W, H, D for 5-D
+    input at `axes=(1, 2, 3)` (its phase path), else D, H, W (its cascade).
+    Its synthesis runs the reverse."""
+    return (2, 1, 0) if ndim == 5 and tuple(axes) == (1, 2, 3) else (0, 1, 2)
 
 
 def dwt3(
@@ -61,23 +120,7 @@ def dwt3(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-level 3D DWT → `(lowpass, {key: detail})` over `DETAIL_KEYS`."""
     _check_wavelet(wavelet)
-    ax_d, ax_h, ax_w = axes
-    a, d = _haar_split(x, ax_d)
-    aa, ad = _haar_split(a, ax_h)
-    da, dd = _haar_split(d, ax_h)
-    aaa, aad = _haar_split(aa, ax_w)
-    ada, add = _haar_split(ad, ax_w)
-    daa, dad = _haar_split(da, ax_w)
-    dda, ddd = _haar_split(dd, ax_w)
-    return aaa, {
-        "aad": aad,
-        "ada": ada,
-        "add": add,
-        "daa": daa,
-        "dad": dad,
-        "dda": dda,
-        "ddd": ddd,
-    }
+    return _dwt3_cascade(x, axes, _jax_order(x.ndim, axes))
 
 
 def idwt3(
@@ -88,14 +131,8 @@ def idwt3(
 ) -> torch.Tensor:
     """Single-level 3D inverse DWT (inverse of `dwt3`)."""
     _check_wavelet(wavelet)
-    ax_d, ax_h, ax_w = axes
-    aa = _haar_merge(lowpass, details["aad"], ax_w)
-    ad = _haar_merge(details["ada"], details["add"], ax_w)
-    da = _haar_merge(details["daa"], details["dad"], ax_w)
-    dd = _haar_merge(details["dda"], details["ddd"], ax_w)
-    a = _haar_merge(aa, ad, ax_h)
-    d = _haar_merge(da, dd, ax_h)
-    return _haar_merge(a, d, ax_d)
+    order = _jax_order(lowpass.ndim, axes)[::-1]
+    return _idwt3_cascade(lowpass, details, axes, order)
 
 
 def wavedec3(

@@ -24,6 +24,7 @@ import json
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
 import torch
@@ -53,6 +54,32 @@ __device__ __forceinline__ float exp2_fma(float x) {
 }
 
 // ex2.approx: 2^x on the special-function unit (−∞ → +0)"""
+
+# tiled_matmul.cu's int8 epilogue as 16-byte stores from registers (the bf16
+# kernel's), in place of the staged TMA stores, whose loop then runs no slice
+_S8_REGISTER_STORE = [
+    ("    // slice c: columns n0 + 32c … + 31;",
+     """    {
+      int* out = static_cast<int*>(p.out);
+#pragma unroll
+      for (int j = 0; j < kS8BN / 8; ++j) {
+        const bool odd = t & 1;
+        const int* a = acc + 4 * j;
+        const int r0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+        const int r1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+        const int4 v = odd ? make_int4(r0 + po, r1 + po, a[2] + po, a[3] + po)
+                           : make_int4(a[0] + po, a[1] + po, r0 + po, r1 + po);
+        const int row = m0 + wg * 64 + warp * 16 + g + (odd ? 8 : 0);
+        const int col = n0 + j * 8 + 2 * (t & ~1);
+        if (row < p.M && col < p.N) {
+          *reinterpret_cast<int4*>(out + (long long)row * p.N + col) = v;
+        }
+      }
+    }
+    // slice c: columns n0 + 32c … + 31;"""),
+    ("for (int c = 0; c < kS8BN / 32; ++c) {  // unrolled: acc is indexed by constants",
+     "for (int c = 0; c < 0; ++c) {"),
+]
 
 
 def _dw_segments(per_block: int) -> List[Tuple[str, str]]:
@@ -145,11 +172,14 @@ _FFN_FIRST_PLAN = [
 
 # name → substitutions (old, new) on the committed source; the first is it
 VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
-    "tiled_matmul": {
-        "persistent, 128x256, 4 stages (committed)": [],
-        "one block per tile": [
-            ("const int grid = (int)(tiles < sms ? tiles : sms);", "const int grid = (int)tiles;")],
-        "persistent, 3 stages": [("kWgStages = 4;", "kWgStages = 3;")],
+    "tiled_matmul": {  # the int8 design, tma_wgmma_s8
+        "128x256 tiles, TMA-store epilogue through 2 slices, 4 stages (committed)": [],
+        "register-store epilogue": _S8_REGISTER_STORE,
+        "128x128 tiles": [("constexpr int kS8BN = 256;", "constexpr int kS8BN = 128;")],
+        "128x128 tiles, 6 stages": [
+            ("constexpr int kS8BN = 256;", "constexpr int kS8BN = 128;"),
+            ("constexpr int kS8Stages = 4;", "constexpr int kS8Stages = 6;")],
+        "3 stages": [("constexpr int kS8Stages = 4;", "constexpr int kS8Stages = 3;")],
     },
     "window_attention": {
         "3 consumer warpgroups at D = 16, 128-key tiles (committed)": [],
@@ -227,7 +257,7 @@ VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
         "D cut below 8 tiles per block": _dw_segments(8),
     },
 }
-# (M, K, N) of the int8 probe; (B, (D, H, W), C, O) of the flagship's DHCW convs;
+# (M, K, N) of the int8 probe (the int8 product's variants); (B, (D, H, W), C, O) of the flagship's DHCW convs;
 # (B·nW, H, N, D) of the flagship's attention calls
 MM_SHAPES = [(32768, 1024, 512), (16384, 2048, 512)]
 ATTN_SHAPES = [(512, 3, 512, 16), (64, 6, 512, 16), (8, 3, 512, 16)]
@@ -271,25 +301,25 @@ def build(kernel: str, name: str, subs: List[Tuple[str, str]]) -> ctypes.CDLL:
 
 
 def _mm_cases(iters: int):
+    """The int8 product as the probe calls it (the transpose of w included),
+    bit-equal to the plain version in both perturbations."""
     for m, k, n in MM_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(0)
-        x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
-        w = torch.randn(k, n, device="cuda", generator=g).to(torch.bfloat16)
-        s = torch.zeros(8, device="cuda")
+        x = torch.randint(-127, 127, (m, k), device="cuda", generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 127, (k, n), device="cuda", generator=g, dtype=torch.int8)
+        s = torch.full((8,), -2.5, device="cuda")
 
         def check(x=x, w=w, s=s):
-            got = tm.tiled_matmul(s, x, w, out_dtype=torch.float32, perturb_out=False)
-            want = tm.tiled_matmul_reference(s, x, w, out_dtype=torch.float32,
-                                             perturb_out=False)
-            scale = x.float().abs() @ w.float().abs()
-            return bool(((got - want).abs() <= 1e-4 * scale).all())
+            return all(torch.equal(
+                tm.tiled_matmul(s, x, w, out_dtype=torch.int32, perturb_out=po),
+                tm.tiled_matmul_reference(s, x, w, out_dtype=torch.int32, perturb_out=po))
+                for po in (False, True))
 
-        def time_it(x=x, w=w):
+        def time_it(x=x, w=w, s=s):
             return device_time(lambda s: tm.tiled_matmul(
-                s, x, w, out_dtype=torch.float32, perturb_out=False), s, iters=iters) * 1e6
+                s, x, w, out_dtype=torch.int32, perturb_out=True), s, iters=iters) * 1e6
 
-        lib_us = device_time(lambda s: torch.mm(x, w, out_dtype=torch.float32), s,
-                             iters=iters) * 1e6
+        lib_us = device_time(lambda s: torch._int_mm(x, w), s, iters=iters) * 1e6
         yield [m, k, n], check, time_it, {"unit": "us", "library": lib_us}
 
 
@@ -439,7 +469,8 @@ def _ffn_cases(iters: int):
 
 def run(kernel: str, iters: int) -> List[dict]:
     names = list(VARIANTS[kernel])
-    libs = {n: build(kernel, n, VARIANTS[kernel][n]) for n in names}
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per variant, all at once
+        libs = dict(zip(names, pool.map(lambda n: build(kernel, n, VARIANTS[kernel][n]), names)))
     source = SOURCES.get(kernel, kernel)
     committed = _build.LIBRARIES.get(source)
     card = torch.cuda.get_device_name(0)

@@ -4,13 +4,15 @@ Counterpart of the repository's `tools/exp_int8_mxu.py`; the name keeps
 "mxu", the TPU's matrix unit. It answers whether an int8 serving mode could
 pay for itself.
 
-    python -m waveformer_tpu_torch.tools.exp_int8_mxu [--iters 64] [--device cuda]
+    python -m waveformer_tpu_torch.tools.exp_int8_mxu [--iters 64] [--device cuda] [--back-to-back]
 
 For each of the JAX probe's three (M, K, N, BM) shapes it runs bf16 → fp32
 (input perturbed) and int8 → int32 (output perturbed) through
 `ops/tiled_matmul_cuda.make`, on inputs from `numpy.random.default_rng(0)`
 drawn in the JAX script's order, and prints one JSON line per shape and
-type: the kernel's µs per call (`utils/profiling.device_time`), its TOP/s,
+type: the kernel's µs per call (`utils/profiling.device_time`: on the
+device, the calls queued behind a device sleep; with `--back-to-back`, as
+fast as the host issues them, its work per call included), its TOP/s,
 the card's bound in µs, the µs of one library call computing the same
 product (`torch.mm(x, w, out_dtype=torch.float32)` for bf16,
 `torch._int_mm(x, w)` for int8: yardsticks only, never on the port's path),
@@ -65,7 +67,7 @@ def _inputs(rng: np.random.Generator, m: int, k: int, n: int, kind: str, dev: to
 
 
 def run(shapes: Sequence[Tuple[int, int, int, int]] = SHAPES, iters: int = 64,
-        device=None) -> List[dict]:
+        device=None, back_to_back: bool = False) -> List[dict]:
     """Time both kernels at `shapes`; one row per shape and type."""
     dev = resolve_device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -77,14 +79,17 @@ def run(shapes: Sequence[Tuple[int, int, int, int]] = SHAPES, iters: int = 64,
             x, w = _inputs(rng, m, k, n, kind, dev)
             mm = make(m, k, n, bm, out_dtype, perturb_out)
             s0 = torch.zeros(8, dtype=torch.float32, device=dev)
-            t = device_time(lambda s, x=x, w=w, mm=mm: mm(s, x, w), s0, iters=iters)
+            t = device_time(lambda s, x=x, w=w, mm=mm: mm(s, x, w), s0, iters=iters,
+                            behind_sleep=not back_to_back)
             lib, lib_name = LIBRARY[kind]
             lib_t = None
             if dev.type == "cuda":
-                lib_t = device_time(lambda s, x=x, w=w: lib(x, w), s0, iters=iters)
+                lib_t = device_time(lambda s, x=x, w=w: lib(x, w), s0, iters=iters,
+                                    behind_sleep=not back_to_back)
             b_us, b_by = bound_us(m, k, n, kind)
             pair[kind] = {
                 "M": m, "K": k, "N": n, "BM": bm, "dtype": kind, "device": name,
+                "timing": "back_to_back" if back_to_back else "device",
                 "us": t * 1e6, "top_s": 2 * m * k * n / t / 1e12,
                 "bound_us": b_us, "bound_by": b_by,
                 "library_us": None if lib_t is None else lib_t * 1e6,
@@ -104,8 +109,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=64)
     ap.add_argument("--device", default=None, help="default: the CUDA device")
+    ap.add_argument("--back-to-back", action="store_true",
+                    help="time the calls as the host issues them, without the device sleep")
     args = ap.parse_args(argv)
-    for row in run(iters=args.iters, device=args.device):
+    for row in run(iters=args.iters, device=args.device, back_to_back=args.back_to_back):
         print(json.dumps(row), flush=True)
 
 

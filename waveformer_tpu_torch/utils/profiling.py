@@ -5,7 +5,8 @@
     (open with Perfetto or `chrome://tracing`);
   * `Timer` — hierarchical wall-clock section timers with summaries;
   * `device_time` — seconds per call of a callable, timed on the device: CUDA
-    events around the calls for CUDA tensors, the host clock for CPU ones;
+    events around calls queued behind a device sleep for CUDA tensors, the
+    host clock for CPU ones;
   * `estimate_flops` — PyTorch's FLOP counter over one call.
 """
 
@@ -76,14 +77,25 @@ def _first_tensor(out) -> torch.Tensor:
     return out
 
 
-def device_time(fn: Callable, *args, iters: int = 8) -> float:
+# device clocks of sleep queued ahead of each timed CUDA call (≈0.6 ms at the
+# H100's clock): more than the host needs to launch any call timed here
+SLEEP_CYCLES = 1_000_000
+
+
+def device_time(fn: Callable, *args, iters: int = 8, behind_sleep: bool = True) -> float:
     """Seconds per call of `fn(*args)`, the first argument perturbed by
     `i·1e-6` on call `i` (as the JAX helper's scan carry does), after one
     warm-up call; one scalar of the last output is read back at the end.
 
     For a CUDA first argument the `iters` perturbed inputs are made on the
     device before the start event, and CUDA events around the calls give the
-    time; for a CPU one, the host clock around the calls.
+    time; the calls are queued behind a device-side sleep of `SLEEP_CYCLES`
+    per call, so a call that is shorter than its host work (wrapper, tensor
+    maps, launches) is timed on the device, not at the host's launch rate.
+    `behind_sleep=False` leaves the sleep out: the calls then run back to
+    back as the host issues them, and a call bound by its host work is
+    timed at the host's rate. For a CPU first argument, the host clock
+    around the calls.
     """
     first, rest = args[0], args[1:]
     inputs = [(first + i * 1e-6).to(first.dtype) for i in range(iters)]
@@ -92,6 +104,8 @@ def device_time(fn: Callable, *args, iters: int = 8) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize(first.device)
+        if behind_sleep:
+            torch.cuda._sleep(SLEEP_CYCLES * iters)
         start.record()
         for a in inputs:
             out = fn(a, *rest)
