@@ -24,6 +24,17 @@ Phases, each of which must pass:
      (4, 150, 180, 145) cases; kernel launches are counted over the run
      (window attention and the stencil also per design: all on TMA + wgmma
      and all on the TMA plane ring);
+  5b. the serving pipeline, in a temporary directory: two BraTS-shaped
+     cases (raw (240, 240, 155) ground truth under a non-RAS affine,
+     preprocessed (4, 150, 180, 145) data with its properties), a YAML
+     config read by the port's own reader and a `best_model_*.npz` in the
+     JAX package's format from the seed-0 flagship;
+     `waveformer_tpu_torch.scripts.predict` at `--tta 8` (launches exactly
+     112 `tma_wgmma` attention and 80 `tma_ring` stencil launches a case),
+     each written NIfTI equal voxel for voxel (and in its affine) to
+     `predict_case` + `save_to_nii` of the in-memory seed-0 model, then
+     `scripts.compute_metrics` (a finite (2, 3, 2) result) and
+     `dice_torch` on the card against the host `dice` (1e-6);
   6. the dense 3³ conv kernel (`csrc/conv3.cu`) in its three forms (DHWC,
      DHCW, fused with the InstanceNorm prologue and statistics; bf16 DHCW on
      the (D, H, C, W) TMA + wgmma design, bf16 DHWC with C % 8 == 0 on the
@@ -66,8 +77,11 @@ beside it, the script exits non-zero and prints no result.
 """
 
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -152,6 +166,11 @@ TM_S_VALUES = (0.0, 3.7, -2.5)
 # per 16-deep K-step, 130 steps at K = 2080): 1e-4 of Σ|x'||w| + |s0|
 TM_RTOL = 1e-4
 TM_ITERS = 64
+# the serving phase: raw BraTS volumes (X, Y, Z) under a non-RAS source affine,
+# and each case's crop in canonical (D, H, W) = (155, 240, 240), of CASE_SHAPE
+SERVING_RAW_SHAPE = (240, 240, 155)
+SERVING_AFFINE = np.diag([-1.0, -1.0, 1.0, 1.0]).astype(np.float32)
+SERVING_BBOXES = [((2, 152), (30, 210), (48, 193)), ((4, 154), (28, 208), (50, 195))]
 
 
 def log(msg):
@@ -382,15 +401,10 @@ def check_configs_vs_cpu(create_waveformer, ac, dc):
     return ok, rows
 
 
-def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac, dc):
-    # the bench protocol: (C, D, H, W) cases, channels-first model and inferer
-    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=SEED,
-                              io_layout="channels_first")
-    inferer = SlidingWindowInferer(
-        roi_size=(128, 128, 128), sw_batch_size=8, overlap=0.5,
-        mirror_axes=(0, 1, 2), tta_mode="patch", layout="channels_first",
-    )
-    predictor = Predictor(inferer, upload_dtype=torch.bfloat16)
+def run_main_path(bench, ac, dc):
+    # the bench protocol, built by the bench's own setup: (C, D, H, W) cases,
+    # the seed-0 bf16 flagship, channels-first model and inferer
+    model, predictor = bench.setup()
     rng = np.random.default_rng(SEED)
     cases = [rng.standard_normal(CASE_SHAPE).astype(np.float32)
              for _ in range(STREAM_CASES + 1)]
@@ -438,6 +452,152 @@ def run_main_path(create_waveformer, Config, SlidingWindowInferer, Predictor, ac
            "label_counts": np.bincount(seg.ravel(), minlength=4).tolist()}
     log(json.dumps(row))
     return ok, {"window_attention": stream_counts[0], "dwconv3": stream_counts[1]}
+
+
+def serving_config_text(root):
+    """The serving phase's YAML config, read by the port's own reader: the
+    flagship network of examples/brats2023/config.yaml, bf16, 128³ roi,
+    sw_batch 8, overlap 0.5, 8-way mirror TTA."""
+    return f"""\
+# the serving phase of chip_smoke.py
+data_dir: "{root}/fullres"
+logdir: "{root}/logs/"
+raw_data_dir: "{root}/raw"
+model_name: "chip_smoke"
+data_list_path: "{root}/data_list"
+split_path: "default_split"
+seed: {SEED}
+compute_dtype: "bfloat16"
+label_mode: "brats"
+prediction:
+  patch_size: [128, 128, 128]
+  sw_batch_size: 8
+  overlap: 0.5
+  mirror_axes: [0, 1, 2]
+  raw_spacing: [1, 1, 1]
+  prediction_save: "{root}/predictions"
+logging:
+  log_file: "{root}/logs/predict.log"
+network:
+  model_type: "Waveformer"
+  in_channels: 4
+  out_channels: 4
+  img_size: [128, 128, 128]
+  patch_size: 2
+  transformer:
+    embed_dims: [48, 96, 192, 384]
+    depths: [2, 2, 2, 2]
+    num_heads: [3, 6, 12, 24]
+    decom_levels: [3, 2, 1, 0]
+    multi_scale_attention: true
+    hf_refinement: false
+"""
+
+
+def write_serving_tree(root, rng):
+    """Two BraTS-shaped cases as preprocessing leaves them (raw (240, 240,
+    155) ground truth in source voxel order under a non-RAS affine,
+    preprocessed (4, 150, 180, 145) fp32 data with its properties), the
+    YAML config and a `best_model_*.npz` written from the seed-0 flagship
+    in the JAX package's format."""
+    from waveformer_tpu_torch.config import Config
+    from waveformer_tpu_torch.tools import synthetic_cases
+
+    names = synthetic_cases.write_cases(root, rng, SERVING_RAW_SHAPE, SERVING_BBOXES,
+                                        SERVING_AFFINE)
+    config = os.path.join(root, "config.yaml")
+    with open(config, "w") as f:
+        f.write(serving_config_text(root))
+    synthetic_cases.write_checkpoint(
+        os.path.join(root, "logs", "model", "best_model_0.0000_chip_smoke.npz"),
+        Config().network.model_kwargs(), seed=SEED)
+    return config, names
+
+
+def run_serving_path(bench, ac, dc):
+    """The serving phase: `scripts.predict` at `--tta 8` on two BraTS-shaped
+    cases (exact launch counts per design), each written NIfTI against
+    `predict_case` + `save_to_nii` of the in-memory seed-0 model,
+    `scripts.compute_metrics` on the predictions, and `dice_torch` on the
+    card against the host `dice`."""
+    from waveformer_tpu_torch.metrics import convert_labels_brats, dice, dice_torch
+    from waveformer_tpu_torch.scripts import compute_metrics, predict
+    from waveformer_tpu_torch.utils import nifti
+
+    ok = True
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        config, names = write_serving_tree(root, np.random.default_rng(SEED))
+        setup_s = time.time() - t0
+        n = len(names)
+
+        for counter in (ac, dc):
+            counter.launches = 0
+            for k in counter.design_launches:
+                counter.design_launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary = predict.main(["--config", config, "--tta", "8"])
+        script_s = time.time() - t0
+        launches = {"window_attention": ac.launches, "dwconv3": dc.launches}
+        designs = {"window_attention": dict(ac.design_launches),
+                   "dwconv3": dict(dc.design_launches)}
+        ok &= summary["cases"] == n
+        ok &= launches == {"window_attention": 112 * n, "dwconv3": 80 * n}
+        ok &= designs == {"window_attention": {"fma": 0, "tma_wgmma": 112 * n},
+                          "dwconv3": {"vector": 0, "tma_ring": 80 * n}}
+
+        model, predictor = bench.setup()
+        equal, case_s, save_s, dice_errs, compared = [], [], [], [], 0
+        for name in names:
+            base = os.path.join(root, "fullres", name)
+            with open(base + ".pkl", "rb") as f:
+                props = pickle.load(f)
+            t0 = time.time()
+            seg = predictor.predict_case(np.load(base + ".npy"), model, 4, props)
+            case_s.append(time.time() - t0)
+            ref_path = os.path.join(root, name + "_in_memory.nii.gz")
+            t0 = time.time()
+            predictor.save_to_nii(seg, ref_path, properties=props)
+            save_s.append(time.time() - t0)
+            got = nifti.load(os.path.join(root, "predictions", name + ".nii.gz"))
+            want = nifti.load(ref_path)
+            equal.append(got.data.shape == SERVING_RAW_SHAPE
+                         and np.array_equal(got.data, want.data)
+                         and np.array_equal(got.affine, want.affine)
+                         and np.array_equal(got.affine, SERVING_AFFINE))
+            # dice_torch on the card against the host dice, TC/WT/ET
+            gt = nifti.load(os.path.join(root, "raw", name, "seg.nii.gz")).data.T
+            p, g = convert_labels_brats(got.data.T), convert_labels_brats(gt)
+            on_card = dice_torch(torch.from_numpy(p).cuda(), torch.from_numpy(g).cuda())
+            on_card = on_card.double().cpu().numpy()
+            for c in range(3):
+                if p[c].any() and g[c].any():
+                    dice_errs.append(abs(float(on_card[c]) - dice(p[c], g[c])))
+                    compared += 1
+        ok &= all(equal) and compared > 0 and max(dice_errs) <= 1e-6
+        del model, predictor
+        torch.cuda.empty_cache()
+
+        out = os.path.join(root, "result_metrics.npy")
+        t0 = time.time()
+        results = compute_metrics.main(["--config", config, "--out", out])
+        metrics_s = time.time() - t0
+        ok &= results.shape == (n, 3, 2) and bool(np.isfinite(results).all())
+        ok &= np.array_equal(np.load(out), results)
+
+    row = {"check": "serving_path", "cases": n, "case_shape": list(CASE_SHAPE),
+           "raw_shape": list(SERVING_RAW_SHAPE), "setup_s": setup_s,
+           "script_seconds_per_case": script_s / n,
+           "script_cases_per_s": summary["cases_per_s"],
+           "predict_case_seconds": case_s, "save_to_nii_seconds": save_s,
+           "metrics_seconds": metrics_s,
+           "launches": launches, "launches_by_design": designs,
+           "files_equal_in_memory": equal,
+           "dice_torch_max_abs_err": max(dice_errs, default=None),
+           "dice_classes_compared": compared, "metrics": results.tolist(), "ok": bool(ok)}
+    log(json.dumps(row))
+    return ok
 
 
 def bound(nbytes, t_ops_s):
@@ -827,8 +987,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
+        from waveformer_tpu_torch import bench
         from waveformer_tpu_torch.config import Config
-        from waveformer_tpu_torch.inference import Predictor, SlidingWindowInferer
         from waveformer_tpu_torch.models import create_waveformer
         from waveformer_tpu_torch.ops import _build
         from waveformer_tpu_torch.ops import attention_cuda as ac
@@ -868,10 +1028,11 @@ def main():
     ok, _ = check_configs_vs_cpu(create_waveformer, ac, dc)
     if not ok:
         failed.append("configs_card_vs_cpu")
-    ok, launches = run_main_path(
-        create_waveformer, Config, SlidingWindowInferer, Predictor, ac, dc)
+    ok, launches = run_main_path(bench, ac, dc)
     if not ok:
         failed.append("main_path")
+    if not run_serving_path(bench, ac, dc):
+        failed.append("serving_path")
     ok, conv_rows = check_conv(cc, fc)
     results.update(conv_rows)
     if not ok:

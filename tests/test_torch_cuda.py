@@ -639,3 +639,109 @@ class TestTiledMatmulOnCard:
         with pytest.raises(ValueError):
             ttm.tiled_matmul(s, x, w, out_dtype=torch.int32, perturb_out=True)
         assert ttm.launches == before
+
+
+# the serving scripts at a small config: the 32³ example network (head dim 4,
+# so every attention call runs the `fma` design), two (4, 40, 44, 36) cases
+SERVING_NET = """\
+network:
+  in_channels: 4
+  out_channels: 4
+  img_size: [32, 32, 32]
+  patch_size: 2
+  transformer:
+    embed_dims: [8, 16, 32, 64]
+    depths: [1, 1, 1, 1]
+    num_heads: [2, 4, 8, 8]
+    decom_levels: [3, 2, 1, 0]
+    drop_path_rate: 0.0
+"""
+SERVING_BBOXES = [((1, 41), (3, 47), (5, 41)), ((2, 42), (4, 48), (6, 42))]
+
+
+def _serving_tree(root, dtype_name):
+    import os
+
+    from waveformer_tpu_torch.config import load_config
+    from waveformer_tpu_torch.tools import synthetic_cases
+
+    affine = np.diag([-1.0, -1.0, 1.0, 1.0]).astype(np.float32)
+    names = synthetic_cases.write_cases(str(root), np.random.default_rng(0), (46, 50, 42),
+                                        SERVING_BBOXES, affine)
+    config = os.path.join(str(root), "config.yaml")
+    with open(config, "w") as f:
+        f.write(f'data_dir: "{root}/fullres"\nlogdir: "{root}/logs/"\n'
+                f'raw_data_dir: "{root}/raw"\ndata_list_path: "{root}/data_list"\n'
+                f'compute_dtype: "{dtype_name}"\nlogging:\n  enabled: false\n'
+                f'prediction:\n  patch_size: [32, 32, 32]\n  sw_batch_size: 8\n'
+                f'  overlap: 0.5\n  prediction_save: "{root}/pred"\n' + SERVING_NET)
+    cfg = load_config(config)
+    synthetic_cases.write_checkpoint(os.path.join(str(root), "logs", "model",
+                                                  "best_model_0.0000_card.npz"),
+                                     cfg.network.model_kwargs(), seed=0)
+    return config, cfg, names
+
+
+def _zero_counts():
+    for counter in (tac, tdc):
+        counter.launches = 0
+        for k in counter.design_launches:
+            counter.design_launches[k] = 0
+
+
+def _counts():
+    return {"attention": dict(tac.design_launches), "dwconv3": dict(tdc.design_launches)}
+
+
+@pytest.mark.cuda
+class TestServingOnCard:
+    def test_dice_torch_matches_host(self, cuda_device):
+        from waveformer_tpu_torch.metrics import dice, dice_torch
+
+        rng = np.random.default_rng(0)
+        p = rng.random((5, 24, 20, 16)) < 0.3
+        g = rng.random((5, 24, 20, 16)) < 0.4
+        p[3], g[3] = False, False  # both empty → 1
+        p[4] = False  # one empty → 0
+        got = dice_torch(torch.from_numpy(p).to(cuda_device),
+                         torch.from_numpy(g).to(cuda_device)).cpu().double().numpy()
+        want = [dice(p[i], g[i]) for i in range(3)] + [1.0, 0.0]
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+    def test_predict_script_launches(self, cuda_device, tmp_path, dtype_name):
+        """The script's launches per design equal those of `predict_case` on
+        the same cases with the same seed-0 model, and its files equal
+        `predict_case` + `save_to_nii`."""
+        import os
+        import pickle
+
+        from waveformer_tpu_torch import bench
+        from waveformer_tpu_torch.scripts import predict
+        from waveformer_tpu_torch.utils import nifti
+
+        config, cfg, names = _serving_tree(tmp_path, dtype_name)
+        model, predictor = bench.setup(cfg, cuda_device)
+        _zero_counts()
+        refs = []
+        for name in names:
+            base = os.path.join(str(tmp_path), "fullres", name)
+            with open(base + ".pkl", "rb") as f:
+                props = pickle.load(f)
+            ref = os.path.join(str(tmp_path), name + "_ref.nii.gz")
+            predictor.save_to_nii(predictor.predict_case(np.load(base + ".npy"), model, 4, props),
+                                  ref, properties=props)
+            refs.append(ref)
+        want = _counts()
+        _zero_counts()
+        assert predict.main(["--config", config, "--tta", "8"])["cases"] == len(names)
+        assert _counts() == want
+        assert want["attention"]["tma_wgmma"] == 0 and want["attention"]["fma"] > 0
+        if dtype_name == "float32":
+            assert want["dwconv3"]["tma_ring"] == 0 and want["dwconv3"]["vector"] > 0
+        else:
+            assert want["dwconv3"]["tma_ring"] > 0
+        for name, ref in zip(names, refs):
+            got = nifti.load(os.path.join(str(tmp_path), "pred", name + ".nii.gz"))
+            np.testing.assert_array_equal(got.data, nifti.load(ref).data)
+            np.testing.assert_array_equal(got.affine, nifti.load(ref).affine)

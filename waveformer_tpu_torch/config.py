@@ -1,16 +1,19 @@
-"""Model and inference configuration defaults.
+"""Typed configuration in the reference `config.yaml` schema.
 
-A copy of the dataclasses of `waveformer_tpu/config.py` that the main path
-needs (`TransformerConfig`, `NetworkConfig.model_kwargs`, the roi size).
-PyYAML is imported only inside `load_config`, so nothing on the
-inference path needs it.
+A copy of `waveformer_tpu/config.py`: the same dataclasses, fields,
+defaults and `from_dict` filtering (unknown top-level keys go to `extra`,
+unknown nested keys are dropped). `load_config` reads YAML with the
+port's own reader (`utils/yaml_subset.py`), so no PyYAML is needed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
+
+from waveformer_tpu_torch.utils import yaml_subset
 
 
 def _as_tuple3(v) -> Tuple[int, int, int]:
@@ -119,27 +122,134 @@ class NetworkConfig:
 
 
 @dataclass(frozen=True)
-class Config:
-    """Top-level config: the parts of the reference `config.yaml` that the
-    port reads (the patch size and the network)."""
+class PredictionConfig:
+    """Inference settings (reference `config.yaml:21-29`).
 
+    `tta_orientations` is the first-class serving-protocol knob: the number
+    of mirror orientations averaged per case (8 = the reference's full
+    `mirror_axes=[0,1,2]` protocol, `4_predict.py:208-211`; 1 = no TTA).
+    When set, it overrides `mirror_axes`."""
+
+    best_model_id: str = "best_model.ckpt"
+    patch_size: Tuple[int, int, int] = (128, 128, 128)
+    sw_batch_size: int = 2
+    overlap: float = 0.5
+    mirror_axes: Tuple[int, ...] = (0, 1, 2)
+    tta_orientations: Optional[int] = None
+    raw_spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    prediction_save: str = "./prediction_results"
+    results_root: str = "prediction_results"
+
+    _TTA_TO_AXES = {1: (), 2: (0,), 4: (0, 1), 8: (0, 1, 2)}
+
+    def __post_init__(self):
+        object.__setattr__(self, "patch_size", _as_tuple3(self.patch_size))
+        object.__setattr__(self, "mirror_axes", tuple(self.mirror_axes))
+        if self.tta_orientations is not None:
+            if self.tta_orientations not in self._TTA_TO_AXES:
+                raise ValueError(
+                    f"tta_orientations must be one of 1/2/4/8, got "
+                    f"{self.tta_orientations}"
+                )
+            object.__setattr__(
+                self, "mirror_axes", self._TTA_TO_AXES[self.tta_orientations]
+            )
+
+    def effective_mirror_axes(self) -> Optional[Tuple[int, ...]]:
+        """The mirror axes to run, or None for no TTA."""
+        return self.mirror_axes if self.mirror_axes else None
+
+
+@dataclass(frozen=True)
+class LoggingConfig:
+    """Logging settings (reference `config.yaml:32-40`)."""
+
+    enabled: bool = True
+    write_to_file: bool = True
+    write_to_console: bool = True
+    log_file: str = "./logs/training.log"
+    log_level_file: str = "debug"
+    log_level_console: str = "info"
+    rewrite_log: bool = False
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level config (reference `config.yaml`)."""
+
+    data_dir: str = "./data/fullres/train"
+    logdir: str = "./logs/"
+    raw_data_dir: str = "./data/raw_data"
+    model_name: str = "waveformer_tpu"
+    data_list_path: str = "./data_list"
+    split_path: str = "default_split"
+    max_epoch: int = 1000
+    batch_size: int = 4
+    val_every: int = 2
+    num_steps_per_epoch: int = 250  # reference `light_training/trainer.py:58`
+    val_patches_per_epoch: int = 100  # reference `light_training/trainer.py:59`
+    full_val_every: int = 0  # epochs between full-volume validations (0=off)
+    full_val_cases: int = 2  # whole cases per full-volume validation
     roi_size: Tuple[int, int, int] = (128, 128, 128)
+    train_process: int = 12  # data-pipeline worker processes (reference name)
+    seed: int = 123
+    lr: float = 1e-4
+    weight_decay: float = 1e-2
+    grad_clip_norm: float = 12.0  # reference `light_training/trainer.py:466`
+    scheduler: Optional[str] = None
+    warmup_epochs: float = 0.0
+    compute_dtype: str = "bfloat16"
+    mesh_shape: Dict[str, int] = field(default_factory=lambda: {"data": 1})
     network: NetworkConfig = field(default_factory=NetworkConfig)
+    prediction: PredictionConfig = field(default_factory=PredictionConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "roi_size", _as_tuple3(self.roi_size))
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
-        net = d.get("network")
-        roi = _as_tuple3(d.get("roi_size", cls.roi_size))
+        d = dict(d)
+        net = d.pop("network", {})
+        pred = d.pop("prediction", {})
+        log = d.pop("logging", {})
+        known = {f.name for f in dataclasses.fields(cls)} - {
+            "network",
+            "prediction",
+            "logging",
+            "extra",
+        }
+        extra = {k: v for k, v in d.items() if k not in known}
+        d = {k: v for k, v in d.items() if k in known}
+        if "roi_size" in d:
+            d["roi_size"] = _as_tuple3(d["roi_size"])
+        pred_known = {f.name for f in dataclasses.fields(PredictionConfig)}
+        pred = {k: v for k, v in pred.items() if k in pred_known}
+        if "patch_size" in pred:
+            pred["patch_size"] = _as_tuple3(pred["patch_size"])
+        if "mirror_axes" in pred:
+            pred["mirror_axes"] = tuple(pred["mirror_axes"])
+        log_known = {f.name for f in dataclasses.fields(LoggingConfig)}
+        log = {k: v for k, v in log.items() if k in log_known}
         return cls(
-            roi_size=roi,
             network=NetworkConfig.from_dict(net) if net else NetworkConfig(),
+            prediction=PredictionConfig(**pred),
+            logging=LoggingConfig(**log),
+            extra=extra,
+            **d,
         )
 
 
 def load_config(path: str) -> Config:
-    """Load a YAML config file in the reference `config.yaml` schema."""
-    import yaml
-
+    """Load a config file in the reference `config.yaml` schema: `.json`
+    with `json`, anything else as YAML through the port's own reader
+    (`utils/yaml_subset.py`, the subset of YAML configs use; PyYAML is not
+    needed)."""
     with open(path, "r") as f:
-        raw = yaml.safe_load(f) or {}
-    return Config.from_dict(raw)
+        text = f.read()
+    if str(path).endswith(".json"):
+        raw = json.loads(text) if text.strip() else None
+    else:
+        raw = yaml_subset.safe_load(text)
+    return Config.from_dict(raw or {})

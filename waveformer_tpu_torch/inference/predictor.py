@@ -8,7 +8,8 @@ inferer):
   * trilinear resample of the logits to the pre-resampling crop shape;
   * argmax on the device, so only the uint8 label map comes back;
   * zero-embedding into the original volume via the preprocessing bbox,
-    and the optional largest-connected-component post-process.
+    and the optional largest-connected-component post-process;
+  * NIfTI export in the source geometry (`save_to_nii`).
 
 Geometry rides in the nnUNet-style `properties` dict
 (`shape_before_cropping`, `bbox_used_for_cropping`,
@@ -17,7 +18,7 @@ Geometry rides in the nnUNet-style `properties` dict
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -25,6 +26,7 @@ import torch
 from waveformer_tpu_torch.device import resolve_device
 from waveformer_tpu_torch.inference.sliding_window import SlidingWindowInferer
 from waveformer_tpu_torch.ops.resize import resize_trilinear
+from waveformer_tpu_torch.utils import nifti
 
 
 def largest_connected_component(seg: np.ndarray) -> np.ndarray:
@@ -163,3 +165,28 @@ class Predictor:
             pending = started
         if pending is not None:
             yield self._finish_case(*pending)
+
+    def save_to_nii(
+        self,
+        seg: np.ndarray,
+        path: str,
+        spacing: Sequence[float] = (1.0, 1.0, 1.0),
+        affine: Optional[np.ndarray] = None,
+        properties: Optional[Dict] = None,
+    ) -> None:
+        """NIfTI export in the SOURCE geometry (`prediction.py:209-227`).
+
+        `seg` is in the pipeline's (D, H, W) = (Z, Y, X) canonical frame;
+        NIfTI stores (X, Y, Z), so the array is transposed. When
+        `properties` carries the preprocessing-time orientation record
+        (`orientation` + `source_affine`), the segmentation is mapped back
+        to the source file's voxel order and written with the source affine
+        (voxel-exact overlay on the raw input). Otherwise a diagonal affine
+        is made from `spacing`."""
+        arr = seg.astype(np.uint8).T  # (D,H,W) → canonical (X,Y,Z)
+        if properties is not None and "orientation" in properties:
+            arr = nifti.undo_canonical(arr, np.asarray(properties["orientation"]))
+            affine = np.asarray(properties["source_affine"], np.float32)
+        elif affine is None:
+            affine = np.diag(list(spacing)[::-1] + [1.0]).astype(np.float32)
+        nifti.save(nifti.NiftiImage(data=arr, affine=affine), path)

@@ -185,13 +185,13 @@ class Waveformer(nn.Module):
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "Waveformer":
         """Cast the parameters to `dtype`, keeping the relative-position
-        bias tables fp32 as the JAX package does."""
+        bias tables fp32 (their fp32 values, not a bf16 rounding of them) as
+        the JAX package does."""
+        tables = {m: m.relative_position_bias_table.data.float()
+                  for m in self.modules() if isinstance(m, WindowAttention)}
         self.to(dtype=dtype)
-        for m in self.modules():
-            if isinstance(m, WindowAttention):
-                m.relative_position_bias_table.data = (
-                    m.relative_position_bias_table.data.float()
-                )
+        for m, table in tables.items():
+            m.relative_position_bias_table.data = table
         return self
 
     def _run(self, mod: nn.Module, *args):

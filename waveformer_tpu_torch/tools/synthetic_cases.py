@@ -1,0 +1,105 @@
+"""Seeded BraTS-style cases as preprocessing leaves them, for the serving
+scripts (`scripts/predict.py`, `scripts/compute_metrics.py`).
+
+`write_cases(root, rng, ...)` writes, under `root`:
+  * `raw/{case}/seg.nii.gz`: a tumour-like label map (label 3 core, 1 body,
+    2 shell) in source voxel order under `affine`;
+  * `fullres/{case}.npz` (`data` (4, D, H, W) fp32, `seg` (1, D, H, W)
+    int8, the crop's labels where the case is stored at its crop), unpacked to
+    `.npy`, and `fullres/{case}.pkl` with the properties preprocessing
+    records (`spacing`, `shape_before_cropping`, `bbox_used_for_cropping`,
+    `shape_after_cropping_and_before_resampling`, `orientation`,
+    `source_affine`), the orientation made with `nifti.as_canonical` as the
+    JAX package's preprocessing makes it;
+  * `data_list/test_list.pkl` naming every case.
+
+`write_checkpoint(path, network_kwargs)` writes a seeded model's
+parameters as a params `.npz` in the JAX package's format.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from waveformer_tpu_torch.data.dataset import unpack_dataset
+from waveformer_tpu_torch.training.checkpoint import save_params_npz
+from waveformer_tpu_torch.utils import nifti
+from waveformer_tpu_torch.utils.torch_port import convert_state_dict
+
+Box = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
+
+
+def tumour_labels(shape: Sequence[int], radius: float) -> np.ndarray:
+    """Concentric label map centred in `shape`: 3 inside radius/3, 1 inside
+    2·radius/3, 2 inside radius, 0 elsewhere."""
+    grid = np.ogrid[tuple(slice(0, n) for n in shape)]
+    r2 = sum((g - n // 2) ** 2 for g, n in zip(grid, shape))
+    return np.select([r2 < (radius / 3) ** 2, r2 < (2 * radius / 3) ** 2, r2 < radius**2],
+                     [3, 1, 2], 0).astype(np.uint8)
+
+
+def write_cases(
+    root: str,
+    rng: np.random.Generator,
+    raw_shape: Tuple[int, int, int],
+    bboxes: Sequence[Box],
+    affine: np.ndarray,
+    stored_shapes: Optional[Sequence[Tuple[int, int, int]]] = None,
+) -> List[str]:
+    """One case per bbox (a crop of the canonical (D, H, W) volume); case i
+    is stored at `stored_shapes[i]` (default: its crop), as resampling
+    would leave it. Returns the case names."""
+    fullres = os.path.join(root, "fullres")
+    os.makedirs(fullres)
+    os.makedirs(os.path.join(root, "data_list"))
+    names = []
+    for i, bbox in enumerate(bboxes):
+        name = f"BraTS-GLI-{i:05d}-000"
+        names.append(name)
+        can, ornt = nifti.as_canonical(
+            nifti.NiftiImage(data=np.zeros(raw_shape, np.uint8), affine=affine))
+        full = can.data.T.shape  # canonical (D, H, W)
+        crop = tuple(slice(b0, b1) for b0, b1 in bbox)
+        crop_shape = tuple(b1 - b0 for b0, b1 in bbox)
+        seg = np.zeros(full, np.uint8)
+        seg[crop] = tumour_labels(crop_shape, min(crop_shape) / 4)
+        os.makedirs(os.path.join(root, "raw", name))
+        nifti.save(nifti.NiftiImage(data=nifti.undo_canonical(seg.T, ornt), affine=affine),
+                   os.path.join(root, "raw", name, "seg.nii.gz"))
+        stored = tuple(stored_shapes[i]) if stored_shapes else crop_shape
+        data = rng.standard_normal((4, *stored)).astype(np.float32)
+        stored_seg = np.zeros((1, *stored), np.int8)  # resampled cases: no labels
+        if stored == crop_shape:
+            data += (seg[crop] > 0)[None]
+            stored_seg[0] = seg[crop]
+        np.savez(os.path.join(fullres, name + ".npz"), data=data, seg=stored_seg)
+        props: Dict = {
+            "spacing": list(can.spacing[::-1]),
+            "shape_before_cropping": full,
+            "bbox_used_for_cropping": [list(b) for b in bbox],
+            "shape_after_cropping_and_before_resampling": crop_shape,
+            "source_affine": np.asarray(affine, float).tolist(),
+            "orientation": np.asarray(ornt, float).tolist(),
+        }
+        with open(os.path.join(fullres, name + ".pkl"), "wb") as f:
+            pickle.dump(props, f)
+    with open(os.path.join(root, "data_list", "test_list.pkl"), "wb") as f:
+        pickle.dump(names, f)
+    unpack_dataset(fullres, num_processes=1)
+    return names
+
+
+def write_checkpoint(path: str, network_kwargs: Dict, seed: int = 0) -> None:
+    """The seed-`seed` model of `network_kwargs` (built on the CPU in fp32)
+    as a params `.npz`, as JAX training writes `best_model_*.npz`."""
+    from waveformer_tpu_torch.models import create_waveformer
+
+    model = create_waveformer(network_kwargs, device="cpu", seed=seed)
+    params = convert_state_dict(model.state_dict(),
+                                depths=tuple(network_kwargs.get("depths", (2, 2, 2, 2))),
+                                hf_refinement=bool(network_kwargs.get("hf_refinement", False)))
+    save_params_npz(params, path)
