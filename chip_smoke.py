@@ -69,6 +69,22 @@ Phases, each of which must pass:
      `waveformer_tpu_torch.tools.exp_int8_mxu.run` with exact launch counts
      (per product and one transpose per int8 product; each type's design as
      the built library reports it) and the kernels' times beside cuBLAS's.
+ 10. the training path: (a) one fp32 train step (DiceCE, the optax-form
+     clip at 12, AdamW on fp32 masters) of the 32³ example network at
+     batch 2, the card (kernels) against the CPU (plain versions) from the
+     same seeded weights and batch; (b) the flagship at full width and depth,
+     128³, batch 2, bf16, built by `scripts.train.build_model`, 6 steps on
+     one resident batch: the loss after 5 updates below the first, exactly
+     14 `tma_wgmma` attention and 10 `tma_ring` stencil launches a forward
+     (the backward is the plain composition, as in JAX), device ms a step
+     by CUDA events and peak memory; (c) `scripts.train.main` on a
+     temporary tree of 4 synthetic (4, 150, 180, 145) cases and a YAML
+     config (roi 128³, batch 2, bf16, `train_fast` augmentation in 2
+     workers, 2 epochs of 4 steps, validation every epoch): finite losses,
+     best and final params `.npz` files whose weights, loaded through
+     `state_dict_from_jax` into a fresh model, give eval logits equal to the
+     trainer's, the warm steps/s through the trainer and its loader-wait
+     share. Phase 10's launches count toward the kernels line.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -166,6 +182,12 @@ TM_S_VALUES = (0.0, 3.7, -2.5)
 # per 16-deep K-step, 130 steps at K = 2080): 1e-4 of Σ|x'||w| + |s0|
 TM_RTOL = 1e-4
 TM_ITERS = 64
+# phase 10: card against CPU on one fp32 train step of the 32³ network
+# (loss and gradient norm: fp32 sums in other orders, TF32 off; masters: one
+# AdamW step moves a parameter by at most lr = 1e-4)
+TRAIN_STEP_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "master_abs": 1e-5}
+TRAIN_RESIDENT_STEPS = 5
+TRAIN_STEPS_PER_EPOCH = 4
 # the serving phase: raw BraTS volumes (X, Y, Z) under a non-RAS source affine,
 # and each case's crop in canonical (D, H, W) = (155, 240, 240), of CASE_SHAPE
 SERVING_RAW_SHAPE = (240, 240, 155)
@@ -598,6 +620,232 @@ def run_serving_path(bench, ac, dc):
            "dice_classes_compared": compared, "metrics": results.tolist(), "ok": bool(ok)}
     log(json.dumps(row))
     return ok
+
+
+def training_config_text(root):
+    """Phase 10's YAML config, read by the port's own reader: the flagship
+    network (`Config()`'s defaults), bf16, roi 128³, batch 2, `train_fast`
+    augmentation in 2 workers, 2 epochs of 4 steps, validation every epoch
+    on 2 patches."""
+    return f"""\
+# the training phase of chip_smoke.py
+data_dir: "{root}/fullres"
+logdir: "{root}/logs/"
+model_name: "chip_smoke"
+data_list_path: "{root}/data_list"
+split_path: "default_split"
+roi_size: [128, 128, 128]
+seed: {SEED}
+compute_dtype: "bfloat16"
+batch_size: 2
+max_epoch: 2
+num_steps_per_epoch: {TRAIN_STEPS_PER_EPOCH}
+val_every: 1
+val_patches_per_epoch: 2
+train_process: 2
+label_mode: "brats"
+logging:
+  log_file: "{root}/logs/train.log"
+"""
+
+
+def zero_counts(*counters):
+    for counter in counters:
+        counter.launches = 0
+        for k in counter.design_launches:
+            counter.design_launches[k] = 0
+
+
+def check_train_step_vs_cpu(create_waveformer, ac, dc):
+    """Phase 10a: one fp32 train step (DiceCE, clip at 12, AdamW) of the 32³
+    example network at batch 2, drop path 0: the card (kernels) against the
+    CPU (plain versions) from the same seeded weights and batch."""
+    from waveformer_tpu_torch.training.losses import dice_ce_loss
+    from waveformer_tpu_torch.training.state import (
+        TrainState, make_optimizer, make_train_step, master_params)
+
+    cfg = EXTRA_CONFIGS["example_32"]
+    rng = np.random.default_rng(SEED)
+    data = torch.from_numpy(rng.standard_normal((2, *cfg["img_size"], cfg["in_chans"]))
+                            .astype(np.float32))
+    seg = torch.from_numpy(rng.integers(0, 4, (2, *cfg["img_size"], 1)).astype(np.int32))
+    out = {}
+    zero_counts(ac, dc)
+    for dev in ("cpu", "cuda"):
+        model = create_waveformer(cfg, device=dev, seed=SEED).train()
+        init = {k: v.detach().clone() for k, v in master_params(model).items()}
+        state = TrainState.create(master_params(model), make_optimizer(lr=1e-4))
+        step = make_train_step(model, dice_ce_loss)
+        state, metrics = step(state, {"data": data.to(dev), "seg": seg.to(dev)})
+        out[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                    {k: v.detach().cpu() for k, v in state.params.items()}, init)
+    (l_cpu, n_cpu, p_cpu, init), (l_gpu, n_gpu, p_gpu, _) = out["cpu"], out["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    norm_rel = abs(n_gpu - n_cpu) / n_cpu
+    master_err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    moved = max(float((p_cpu[k] - init[k].cpu()).abs().max()) for k in p_cpu)
+    designs = {"window_attention": dict(ac.design_launches), "dwconv3": dict(dc.design_launches)}
+    ok = (loss_rel <= TRAIN_STEP_TOL["loss_rel"] and norm_rel <= TRAIN_STEP_TOL["grad_norm_rel"]
+          and master_err <= TRAIN_STEP_TOL["master_abs"] and ac.launches > 0
+          and dc.launches > 0 and np.isfinite(l_gpu) and np.isfinite(n_gpu))
+    row = {"check": "train_step_card_vs_cpu_fp32", "config": "example_32", "batch": 2,
+           "loss": [l_cpu, l_gpu], "loss_rel_err": loss_rel,
+           "grad_norm": [n_cpu, n_gpu], "grad_norm_rel_err": norm_rel,
+           "master_max_abs_err": master_err, "master_max_abs_update": moved,
+           "tolerances": TRAIN_STEP_TOL, "launches_by_design": designs, "ok": bool(ok)}
+    log(json.dumps(row))
+    return ok
+
+
+def run_flagship_training(ac, dc):
+    """Phase 10b: the flagship at full width and depth, 128³, batch 2, bf16,
+    built by `scripts.train.build_model`, trained 5 steps on one resident
+    batch (drop path 0.1 on, masks from the trainer's kind of generator):
+    the loss after the 5 updates below the first, exactly 14 `tma_wgmma`
+    attention and 10 `tma_ring` stencil launches a forward, device ms a
+    step by CUDA events, peak memory."""
+    from waveformer_tpu_torch.config import Config
+    from waveformer_tpu_torch.scripts import train
+    from waveformer_tpu_torch.tools.synthetic_cases import tumour_labels
+    from waveformer_tpu_torch.training.losses import dice_ce_loss
+    from waveformer_tpu_torch.training.state import (
+        TrainState, make_optimizer, make_train_step, master_params)
+    from waveformer_tpu_torch.training.trainer import step_seed
+
+    torch.manual_seed(SEED)
+    model = train.build_model(Config(), torch.device("cuda")).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    state = TrainState.create(master_params(model), make_optimizer(lr=1e-4))
+    step = make_train_step(model, dice_ce_loss)
+    seg = torch.from_numpy(tumour_labels((128,) * 3, 40).astype(np.int32))
+    seg = seg[None, ..., None].expand(2, -1, -1, -1, -1).contiguous().cuda()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    data = torch.randn(2, 128, 128, 128, 4, device="cuda", generator=g) + (seg > 0)
+    batch = {"data": data, "seg": seg}
+    gen = torch.Generator(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ac, dc)
+    losses, norms = [], []
+
+    def one():
+        gen.manual_seed(step_seed(SEED, state.step))
+        _, m = step(state, batch, gen)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+
+    t0 = time.time()
+    one()  # the first step: cuDNN's algorithm choice, the AdamW state
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * 50)
+    start.record()
+    for _ in range(TRAIN_RESIDENT_STEPS):
+        one()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_RESIDENT_STEPS
+    losses = [float(x) for x in losses]
+    forwards = TRAIN_RESIDENT_STEPS + 1
+    counts = {"window_attention": ac.launches, "dwconv3": dc.launches}
+    designs = {"window_attention": dict(ac.design_launches), "dwconv3": dict(dc.design_launches)}
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and counts == {"window_attention": 14 * forwards, "dwconv3": 10 * forwards}
+          and designs == {"window_attention": {"fma": 0, "tma_wgmma": 14 * forwards},
+                          "dwconv3": {"vector": 0, "tma_ring": 10 * forwards}})
+    row = {"check": "flagship_training_resident", "params": n_params, "batch": 2,
+           "patch": [128, 128, 128], "dtype": "bfloat16", "steps": forwards,
+           "losses": losses, "grad_norms": [float(x) for x in norms],
+           "first_step_s": first_s, "device_ms_per_step": ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": counts, "launches_by_design": designs,
+           "launches_per_forward": {k: v / forwards for k, v in counts.items()}, "ok": bool(ok)}
+    log(json.dumps(row))
+    del model, state, step, batch, data, seg
+    torch.cuda.empty_cache()
+    return ok, counts
+
+
+def run_training_script(ac, dc):
+    """Phase 10c: `scripts.train.main` on a temporary tree of 4 synthetic
+    preprocessed (4, 150, 180, 145) cases and a YAML config: finite losses,
+    best and final params `.npz` written, the final one (and the best one
+    where it is of the last epoch) loaded through `state_dict_from_jax`
+    into a fresh model with eval logits `torch.equal` to the trainer's."""
+    from waveformer_tpu_torch import runtime
+    from waveformer_tpu_torch.config import load_config
+    from waveformer_tpu_torch.scripts import train
+    from waveformer_tpu_torch.tools import synthetic_cases
+    from waveformer_tpu_torch.training.checkpoint import load_params_npz
+    from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
+
+    ok = True
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        synthetic_cases.write_training_cases(os.path.join(root, "fullres"), n=4,
+                                             shape=CASE_SHAPE[1:], seed=SEED)
+        config = os.path.join(root, "config.yaml")
+        with open(config, "w") as f:
+            f.write(training_config_text(root))
+        setup_s = time.time() - t0
+        zero_counts(ac, dc)
+        t0 = time.time()
+        trainer = train.main(["--config", config])
+        script_s = time.time() - t0
+        counts = {"window_attention": ac.launches, "dwconv3": dc.launches}
+        designs = {"window_attention": dict(ac.design_launches),
+                   "dwconv3": dict(dc.design_launches)}
+        # 2 epochs of steps, and one validation batch an epoch
+        forwards = 2 * TRAIN_STEPS_PER_EPOCH + 2
+        ok &= counts == {"window_attention": 14 * forwards, "dwconv3": 10 * forwards}
+        ok &= designs == {"window_attention": {"fma": 0, "tma_wgmma": 14 * forwards},
+                          "dwconv3": {"vector": 0, "tma_ring": 10 * forwards}}
+        with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        losses = [r["value"] for r in scalars if r["tag"] == "training_loss"]
+        ok &= len(losses) == 2 * TRAIN_STEPS_PER_EPOCH and bool(np.isfinite(losses).all())
+        model_dir = os.path.join(root, "logs", "model")
+        best = sorted(f for f in os.listdir(model_dir) if f.startswith("best_model_")
+                      and f.endswith(".npz"))
+        final = sorted(f for f in os.listdir(model_dir) if f.startswith("final_model_")
+                       and f.endswith(".npz"))
+        ok &= len(best) == 1 and len(final) == 1
+
+        cfg = load_config(config)
+        t = cfg.network.transformer
+        x = torch.randn(2, 128, 128, 128, 4, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+        with torch.no_grad():
+            want = trainer.model.eval()(x)
+        equal = {}
+        for name in best + final:
+            with open(os.path.join(model_dir, name + ".json")) as f:
+                epoch = json.load(f)["epoch"]
+            if epoch != trainer.epoch:  # an earlier epoch's weights: loads, finite logits
+                continue
+            fresh = train.build_model(cfg, torch.device("cuda"))
+            fresh.load_state_dict(state_dict_from_jax(
+                load_params_npz(os.path.join(model_dir, name)), t.depths, t.hf_refinement),
+                strict=True)
+            with torch.no_grad():
+                equal[name] = bool(torch.equal(fresh(x), want))
+            del fresh
+        ok &= len(equal) >= 1 and all(equal.values())
+        (n0, s0, w0), (n1, s1, w1) = trainer.epoch_times
+        row = {"check": "training_script", "cases": 4, "case_shape": list(CASE_SHAPE),
+               "setup_s": setup_s, "script_s": script_s, "epochs": 2,
+               "steps_per_epoch": TRAIN_STEPS_PER_EPOCH, "workers": 2,
+               "first_epoch_steps_per_s": n0 / s0, "warm_steps_per_s": n1 / s1,
+               "warm_loader_wait_share": w1 / s1, "first_epoch_loader_wait_share": w0 / s0,
+               "losses": losses, "best_mean_dice": trainer.best_mean_dice,
+               "checkpoints": best + final, "logits_equal": equal,
+               "launches": counts, "launches_by_design": designs,
+               "runtime_available": runtime.available(), "ok": bool(ok)}
+        del trainer
+    log(json.dumps(row))
+    torch.cuda.empty_cache()
+    return ok, counts
 
 
 def bound(nbytes, t_ops_s):
@@ -1051,6 +1299,15 @@ def main():
     if not ok:
         failed.append("int8_probe")
     launches.update(probe_launches)
+    if not check_train_step_vs_cpu(create_waveformer, ac, dc):
+        failed.append("train_step_card_vs_cpu")
+    for phase, fn in (("flagship_training", run_flagship_training),
+                      ("training_script", run_training_script)):
+        ok, counts = fn(ac, dc)
+        if not ok:
+            failed.append(phase)
+        for name, n in counts.items():
+            launches[name] += n
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")

@@ -745,3 +745,87 @@ class TestServingOnCard:
             got = nifti.load(os.path.join(str(tmp_path), "pred", name + ".nii.gz"))
             np.testing.assert_array_equal(got.data, nifti.load(ref).data)
             np.testing.assert_array_equal(got.affine, nifti.load(ref).affine)
+
+
+# (B·nW, H, N, D) of a batch-2 flagship training forward's attention calls,
+# and (B, D, H, W, C) of its depthwise convs
+TRAIN_ATTN_SHAPES = [(128, 3, 512, 16), (16, 6, 512, 16), (2, 24, 512, 16)]
+TRAIN_DW_SHAPES = [(2, 64, 64, 64, 192), (2, 32, 32, 32, 384), (2, 8, 8, 8, 1536),
+                   (2, 64, 64, 64, 96)]
+EXAMPLE_32 = dict(img_size=(32, 32, 32), patch_size=2, in_chans=4, out_chans=4,
+                  embed_dims=(8, 16, 32, 64), depths=(1, 1, 1, 1), num_heads=(2, 4, 8, 8),
+                  decom_levels=(3, 2, 1, 0), drop_path_rate=0.0)
+
+
+def _grads(fn, ins, g):
+    ins = [t.detach().clone().requires_grad_(True) for t in ins]
+    fn(*ins).backward(g)
+    return [t.grad.float() for t in ins]
+
+
+@pytest.mark.cuda
+class TestTrainingOnCard:
+    """Gradients through the kernels' `autograd.Function`s on the card at the
+    batch-2 flagship's shapes, against the plain versions' gradients (fp32
+    sums in other orders; bf16: the plain version run in fp32 on the same
+    bf16 inputs, one bf16 rounding of each gradient), and one train step of
+    the 32³ network, card against CPU."""
+
+    @pytest.mark.parametrize("shape", TRAIN_ATTN_SHAPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_window_attention_gradients(self, cuda_device, shape, dtype):
+        bw, h, n, d = shape
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        q, k, v = (torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+                   for _ in range(3))
+        bias = 0.5 * torch.randn(h, n, n, device=cuda_device, generator=g)
+        dout = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+        before = tac.launches
+        got = _grads(lambda *a: tac.window_attention(*a, 0.25), (q, k, v, bias), dout)
+        assert tac.launches == before + 1
+        want = _grads(lambda *a: tac.window_attention_reference(*a, 0.25),
+                      [t.float() for t in (q, k, v)] + [bias], dout.float())
+        rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (1.6e-2, 2e-2)
+        for a, b in zip(got, want):
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol * max(1.0, scale))
+
+    @pytest.mark.parametrize("shape", TRAIN_DW_SHAPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_dwconv3_gradients(self, cuda_device, shape, dtype):
+        c = shape[-1]
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        x = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+        w = 0.2 * torch.randn(3, 3, 3, c, device=cuda_device, generator=g)
+        b = torch.randn(c, device=cuda_device, generator=g)
+        dout = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+        before = tdc.launches
+        got = _grads(tdc.dwconv3, (x, w, b), dout)
+        assert tdc.launches == before + 1
+        want = _grads(tdc.dwconv3_reference, (x.float(), w, b), dout.float())
+        rtol = 1e-5 if dtype == torch.float32 else 1.6e-2
+        for a, ref in zip(got, want):
+            # the kernel and bias gradients sum over B·D·H·W voxels
+            torch.testing.assert_close(a, ref, rtol=rtol, atol=1e-5 * float(ref.abs().max())
+                                       + (0 if dtype == torch.float32 else 2e-2))
+
+    def test_train_step_card_vs_cpu(self, cuda_device):
+        from waveformer_tpu_torch.models import create_waveformer
+        from waveformer_tpu_torch.training.losses import dice_ce_loss
+        from waveformer_tpu_torch.training.state import (
+            TrainState, make_optimizer, make_train_step, master_params)
+
+        rng = np.random.default_rng(0)
+        data = torch.from_numpy(rng.standard_normal((2, 32, 32, 32, 4)).astype(np.float32))
+        seg = torch.from_numpy(rng.integers(0, 4, (2, 32, 32, 32, 1)).astype(np.int32))
+        out = {}
+        for dev in ("cpu", cuda_device):
+            model = create_waveformer(EXAMPLE_32, device=dev, seed=0).train()
+            state = TrainState.create(master_params(model), make_optimizer(lr=1e-4))
+            _, m = make_train_step(model, dice_ce_loss)(
+                state, {"data": data.to(dev), "seg": seg.to(dev)})
+            out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                             {k: v.detach().cpu() for k, v in state.params.items()})
+        (l0, n0, p0), (l1, n1, p1) = out["cpu"], out[str(cuda_device)]
+        assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(n1 - n0) <= 1e-3 * n0
+        assert max(float((p1[k] - p0[k]).abs().max()) for k in p0) <= 1e-5

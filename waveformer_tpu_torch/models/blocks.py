@@ -59,7 +59,8 @@ class WaveFormerBlock(nn.Module):
         attn_w = self.attn(window_partition(h, self.window_size))
         return window_unpartition_flat(attn_w, self.window_size, grid)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[HFDetails, ...]]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Tuple[HFDetails, ...]]:
         shortcut = x
         h = self.norm1(x)
         hfs: List[HFDetails] = []
@@ -86,8 +87,8 @@ class WaveFormerBlock(nn.Module):
                     attn_fused, self.img_size, align_corners=False
                 )
 
-        x = shortcut + self.drop_path(attn_fused)
-        x = x + self.drop_path(self.mlp(self.norm2(x)))
+        x = shortcut + self.drop_path(attn_fused, generator)
+        x = x + self.drop_path(self.mlp(self.norm2(x)), generator)
         if self.level > 0:
             # the reference reverses the per-scale list: coarsest first
             return x, (tuple(reversed(hfs)) if self.ms_attention else tuple(hfs))

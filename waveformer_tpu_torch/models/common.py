@@ -17,6 +17,8 @@ InstanceNorm has eps 1e-5 and no affine, LeakyReLU has slope 0.01.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -77,19 +79,26 @@ def layer_norm_stateless(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth (timm DropPath, scale_by_keep=True)."""
+    """Per-sample stochastic depth (timm DropPath, scale_by_keep=True).
+
+    The masks are drawn from `generator`, a `torch.Generator` on x's device
+    that the caller seeds (the trainer seeds one from (seed, step), where
+    the JAX package folds the step into its dropout key); with none, from
+    torch's default generator. The JAX dropout stream itself cannot be
+    reproduced, so parity tests run with rate 0."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.empty(shape, device=x.device).bernoulli_(keep).to(x.dtype)
-        return x * mask / keep
+        mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
+        return x * mask.to(x.dtype) / keep
 
 
 class ConvCL(nn.Conv3d):

@@ -79,7 +79,24 @@ class MultiscaleTransformer(nn.Module):
                     PatchMerging(embed_dims[s], norm_eps=norm_eps),
                 )
 
-    def forward(self, x: torch.Tensor, normalize: bool = True):
+    @staticmethod
+    def _checkpointed(blk: nn.Module, h: torch.Tensor,
+                      generator: Optional[torch.Generator]):
+        """`blk(h, generator)` under activation checkpointing. The
+        recomputation in the backward restores the generator's state first,
+        so it draws the forward's drop-path masks again."""
+        if generator is None:
+            return checkpoint(blk, h, use_reentrant=False)
+        state = generator.get_state()
+
+        def run(x):
+            generator.set_state(state)
+            return blk(x, generator)
+
+        return checkpoint(run, h, use_reentrant=False)
+
+    def forward(self, x: torch.Tensor, normalize: bool = True,
+                generator: Optional[torch.Generator] = None):
         h = self.patch_embed(x)
         outs: List[torch.Tensor] = []
         outs_hf: List[Tuple] = []
@@ -88,9 +105,9 @@ class MultiscaleTransformer(nn.Module):
             x_h: Tuple = ()
             for blk in getattr(self, f"block{s + 1}"):
                 if self.use_checkpoint and torch.is_grad_enabled():
-                    h, x_h = checkpoint(blk, h, use_reentrant=False)
+                    h, x_h = self._checkpointed(blk, h, generator)
                 else:
-                    h, x_h = blk(h)
+                    h, x_h = blk(h, generator)
             outs.append(layer_norm_stateless(h) if normalize else h)
             if s < n_stages - 1:
                 outs_hf.append(x_h)
@@ -204,12 +221,15 @@ class Waveformer(nn.Module):
             return h.permute(0, 4, 1, 2, 3).contiguous()
         return h
 
-    def forward(self, x_in: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x_in: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """Logits of `x_in`; in training mode `generator` (on the model's
+        device) draws the drop-path masks."""
         x = x_in.to(self.compute_dtype)
         if self.io_layout == "channels_first":
             x = x.permute(0, 2, 3, 4, 1)
         x = x.contiguous()
-        outs, outs_hf = self.waveformer_encoder(x)
+        outs, outs_hf = self.waveformer_encoder(x, generator=generator)
         enc0 = self._run(self.encoder1, x)
         enc1 = self._run(self.encoder2, outs[0])
         enc2 = self._run(self.encoder3, outs[1])

@@ -11,8 +11,12 @@ On a CPU tensor the wrapper runs `dwconv3_reference`; on a CUDA tensor it
 launches the kernel or raises. Which of the kernel's two designs runs
 depends on the dtype and C only (`design`): bf16 with C % 8 == 0 on the TMA
 plane ring, the rest (fp32, C % 8 != 0) on the vector kernel.
-`design_launches` counts the launches of each. The backward is the plain
-grouped conv.
+`design_launches` counts the launches of each. The backward is a plain
+composition, as the JAX kernel's is (`dwconv3_backward`): the 27 taps as
+shifted multiply-adds and reductions in fp32. (The autograd of the grouped
+`F.conv3d` would give the same gradients, but there cuDNN's grouped
+weight gradient held a batch-2 flagship training step on an H100 at 4.5 s;
+this composition brings the step to 0.39 s.)
 """
 
 from __future__ import annotations
@@ -57,6 +61,29 @@ def dwconv3_reference(x: torch.Tensor, kernel: torch.Tensor,
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1, groups=c)
     y = y.permute(0, 2, 3, 4, 1).contiguous()
     return y if bias is None else y + bias.to(y.dtype)
+
+
+def dwconv3_backward(x: torch.Tensor, kernel: torch.Tensor, g: torch.Tensor):
+    """(dx, dkernel, dbias) of `dwconv3(x, kernel, bias)` for the output
+    gradient `g`, in fp32: dx is the stencil of g with the flipped kernel
+    and dkernel[tap] the sum over voxels of the tap's shifted x times g, one
+    shifted view a tap (zero padding 1 on D, H, W)."""
+    d, h, w = x.shape[1:4]
+    pad = (0, 0, 1, 1, 1, 1, 1, 1)
+    xp = F.pad(x.float(), pad)
+    g32 = g.float()
+    gp = F.pad(g32, pad)
+    k32 = kernel.float()
+    dx = torch.zeros_like(g32)
+    dk = torch.empty_like(k32)
+    for a in range(3):
+        for b in range(3):
+            for c in range(3):
+                xs = xp[:, a:a + d, b:b + h, c:c + w]
+                dk[a, b, c] = torch.sum(xs * g32, dim=(0, 1, 2, 3))
+                gs = gp[:, 2 - a:2 - a + d, 2 - b:2 - b + h, 2 - c:2 - c + w]
+                dx.addcmul_(gs, k32[a, b, c])
+    return dx, dk, g32.sum(dim=(0, 1, 2, 3))
 
 
 def _launch(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -111,15 +138,8 @@ class _DWConv3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, kernel, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            xi = x.detach().requires_grad_(True)
-            ki = kernel.detach().requires_grad_(True)
-            bi = None if bias is None else bias.detach().requires_grad_(True)
-            out = dwconv3_reference(xi, ki, bi)
-            ins = (xi, ki) if bi is None else (xi, ki, bi)
-            grads = torch.autograd.grad(out, ins, g.to(out.dtype))
-        gb = None if bias is None else grads[2].to(bias.dtype)
-        return grads[0], grads[1].to(kernel.dtype), gb
+        dx, dk, db = dwconv3_backward(x, kernel, g)
+        return dx.to(x.dtype), dk.to(kernel.dtype), None if bias is None else db.to(bias.dtype)
 
 
 def dwconv3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor = None) -> torch.Tensor:

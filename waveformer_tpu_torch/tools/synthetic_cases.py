@@ -1,5 +1,6 @@
 """Seeded BraTS-style cases as preprocessing leaves them, for the serving
-scripts (`scripts/predict.py`, `scripts/compute_metrics.py`).
+scripts (`scripts/predict.py`, `scripts/compute_metrics.py`) and training
+(`scripts/train.py`).
 
 `write_cases(root, rng, ...)` writes, under `root`:
   * `raw/{case}/seg.nii.gz`: a tumour-like label map (label 3 core, 1 body,
@@ -15,6 +16,12 @@ scripts (`scripts/predict.py`, `scripts/compute_metrics.py`).
 
 `write_checkpoint(path, network_kwargs)` writes a seeded model's
 parameters as a params `.npz` in the JAX package's format.
+
+`write_training_cases(fullres, n, shape)` writes preprocessed training
+cases as `tools/bench_train.py::make_cases` makes them: (4, *shape) fp32
+data, an int8 seg with classes 1-3 in three boxes, and a `.pkl` with
+`class_locations` (the patch sampler's foreground oversampling reads it),
+unpacked to `.npy`.
 """
 
 from __future__ import annotations
@@ -103,3 +110,40 @@ def write_checkpoint(path: str, network_kwargs: Dict, seed: int = 0) -> None:
                                 depths=tuple(network_kwargs.get("depths", (2, 2, 2, 2))),
                                 hf_refinement=bool(network_kwargs.get("hf_refinement", False)))
     save_params_npz(params, path)
+
+
+def write_training_cases(fullres: str, n: int = 4,
+                         shape: Tuple[int, int, int] = (150, 180, 145),
+                         seed: int = 0) -> List[str]:
+    """`n` preprocessed BraTS-sized training cases `case_{i}` under
+    `fullres`, their label boxes where `tools/bench_train.py::make_cases`
+    places them at (150, 180, 145) and scaled with the shape at any other.
+    Returns the case names."""
+    os.makedirs(fullres, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def box(*corners):
+        return (0,) + tuple(slice(a * s // s0, b * s // s0)
+                            for (a, b), s, s0 in zip(corners, shape, (150, 180, 145)))
+
+    names = []
+    for i in range(n):
+        data = rng.standard_normal((4, *shape)).astype(np.float32)
+        seg = np.zeros((1, *shape), np.int8)
+        seg[box((40, 90), (50, 100), (40, 80))] = 1
+        seg[box((55, 70), (60, 80), (50, 65))] = 3
+        seg[box((45, 60), (80, 95), (60, 75))] = 2
+        name = f"case_{i}"
+        np.savez(os.path.join(fullres, name + ".npz"), data=data, seg=seg)
+        props = {
+            "spacing": [1.0, 1.0, 1.0],
+            "class_locations": {c: np.argwhere(seg == c)[:2000] for c in (1, 2, 3)},
+            "shape_before_cropping": tuple(shape),
+            "bbox_used_for_cropping": [[0, s] for s in shape],
+            "shape_after_cropping_before_resample": tuple(shape),
+        }
+        with open(os.path.join(fullres, name + ".pkl"), "wb") as f:
+            pickle.dump(props, f)
+        names.append(name)
+    unpack_dataset(fullres, num_processes=1)
+    return names

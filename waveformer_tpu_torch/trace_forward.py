@@ -1,6 +1,8 @@
-"""Where the time of one main-path forward goes, on the CUDA device.
+"""Where the time of one main-path forward (or training step) goes, on the
+CUDA device.
 
     python -m waveformer_tpu_torch.trace_forward [--batch 8] [--out DIR]
+    python -m waveformer_tpu_torch.trace_forward --train [--batch 2] [--out DIR]
 
 Builds the flagship WaveFormer (bf16, random weights from a seed), times a
 batch-8 128³ forward with CUDA events, then traces a few forwards with
@@ -9,6 +11,12 @@ line: forward ms, the device-busy share of the traced wall time, and the
 device time per category (the two hand-written kernels, convolutions,
 matmuls, norms and reductions, elementwise, copies, resize). The full
 per-kernel table goes to `DIR/trace_forward.txt`.
+
+With `--train` it does the same for training steps instead (channels-last
+batches of random labels, the step of `training.state.make_train_step`:
+forward, DiceCE, backward, clip, AdamW on fp32 masters), and adds the
+device time under each kernel's backward (`_WindowAttentionBackward`,
+`_DWConv3Backward`: their plain compositions).
 """
 
 from __future__ import annotations
@@ -46,27 +54,44 @@ def category(name: str) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None, help="default 8, or 2 with --train")
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--train", action="store_true", help="trace training steps")
     ap.add_argument("--out", default=".")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("trace_forward: no CUDA device")
+    args.batch = args.batch or (2 if args.train else 8)
 
-    model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16, seed=0,
-                              io_layout="channels_first")
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(args.batch, 4, 128, 128, 128, device="cuda", generator=g)
-    x = x.to(torch.bfloat16)
-    with torch.inference_mode():
+    if args.train:
+        from waveformer_tpu_torch.training.losses import dice_ce_loss
+        from waveformer_tpu_torch.training.state import (
+            TrainState, make_optimizer, make_train_step, master_params)
+
+        model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16,
+                                  seed=0).train()
+        state = TrainState.create(master_params(model), make_optimizer())
+        step = make_train_step(model, dice_ce_loss)
+        batch = {"data": torch.randn(args.batch, 128, 128, 128, 4, device="cuda", generator=g),
+                 "seg": torch.randint(0, 4, (args.batch, 128, 128, 128, 1), device="cuda",
+                                      generator=g, dtype=torch.int32)}
+        run, context = (lambda: step(state, batch)), torch.enable_grad
+    else:
+        model = create_waveformer(Config().network.model_kwargs(), dtype=torch.bfloat16,
+                                  seed=0, io_layout="channels_first")
+        x = torch.randn(args.batch, 4, 128, 128, 128, device="cuda", generator=g)
+        x = x.to(torch.bfloat16)
+        run, context = (lambda: model(x)), torch.inference_mode
+    with context():
         for _ in range(2):
-            model(x)
+            run()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(args.iters):
-            model(x)
+            run()
         end.record()
         torch.cuda.synchronize()
         fwd_ms = start.elapsed_time(end) / args.iters
@@ -75,7 +100,7 @@ def main(argv=None) -> None:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(args.iters):
-                model(x)
+                run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -91,19 +116,31 @@ def main(argv=None) -> None:
         cats[category(name)] = cats.get(category(name), 0.0) + ms / args.iters
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "trace_forward.txt"), "w") as f:
-        f.write(f"{torch.cuda.get_device_name(0)}  batch {args.batch}  iters {args.iters}\n")
+        f.write(f"{torch.cuda.get_device_name(0)}  batch {args.batch}  iters {args.iters}"
+                f"{'  training steps' if args.train else ''}\n")
         for name, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
-            f.write(f"{ms / args.iters:10.3f} ms/fwd {n // args.iters:6d} calls  "
+            f.write(f"{ms / args.iters:10.3f} ms/{'step' if args.train else 'fwd'} "
+                    f"{n // args.iters:6d} calls  "
                     f"{category(name):12s} {name[:160]}\n")
-    print(json.dumps({
+    unit = "step" if args.train else "forward"
+    row = {
         "device": torch.cuda.get_device_name(0),
         "batch": args.batch,
-        "forward_ms": fwd_ms,
-        "traced_wall_ms_per_forward": wall_ms / args.iters,
-        "device_ms_per_forward": device_ms / args.iters,
+        f"{unit}_ms": fwd_ms,
+        f"traced_wall_ms_per_{unit}": wall_ms / args.iters,
+        f"device_ms_per_{unit}": device_ms / args.iters,
         "device_busy_share": device_ms / wall_ms,
-        "category_ms_per_forward": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
-    }), flush=True)
+        f"category_ms_per_{unit}": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+    }
+    if args.train:
+        # device time under each kernel's autograd node (its plain backward)
+        row["backward_ms_per_step"] = {
+            node: sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                      for e in prof.key_averages()
+                      if e.key == f"autograd::engine::evaluate_function: {node}")
+            / 1e3 / args.iters
+            for node in ("_WindowAttentionBackward", "_DWConv3Backward")}
+    print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

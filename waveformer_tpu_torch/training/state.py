@@ -1,0 +1,212 @@
+"""Train state and step factories: fp32 masters, global-norm clip, AdamW.
+
+Port of `waveformer_tpu/training/state.py` (the reference's fp32 step with
+gradient clipping, `light_training/trainer.py:451-471`: AdamW lr 1e-4 at
+`3_train.py:70`, `clip_grad_norm_(12)` at `trainer.py:466`).
+
+The JAX model keeps fp32 parameters and computes in its compute dtype; its
+optimizer state and updates are fp32. The port's module holds its
+parameters in the compute dtype (`create_waveformer(dtype=torch.bfloat16)`
+casts them; the relative-position tables stay fp32), so the train state
+keeps fp32 **master** parameters and fp32 AdamW moments beside it. A step
+runs the module, upcasts its gradients (the VJP of JAX's parameter cast),
+clips them, updates the masters and copies them back into the module. An
+fp32 parameter is its own master and is updated in place.
+
+The optimizer is `optax.chain(clip_by_global_norm(c), adamw(lr, b1, b2,
+eps, weight_decay))` written out in optax's own form on the masters: the
+clip scales by `c / norm` only when `norm >= c` (torch's `clip_grad_norm_`
+divides by `norm + 1e-6`); the moments are `(1 - b)·g + b·m`, the bias
+corrections `1 - b**t` are rounded to fp32 as optax rounds them (for b2 =
+0.999 that alone moves an update by 6e-6 relative against float64, so
+`torch.optim.AdamW` differs from optax by more than fp32 rounding), and
+every parameter decays (optax's `adamw` with no mask). The updates are
+`torch._foreach_*` calls over all masters, no host synchronisation; the
+learning rate of step `t` is `schedule(t)`, the count before the step, as
+optax reads it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from waveformer_tpu_torch.training.schedules import Schedule, constant_schedule
+
+
+@dataclass
+class Optimizer:
+    """Global-norm clip then AdamW, with the reference's defaults."""
+
+    schedule: Schedule
+    weight_decay: float = 1e-2
+    grad_clip_norm: Optional[float] = 12.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+class AdamWState:
+    """optax `ScaleByAdamState`: the update count and fp32 first and second
+    moments, one per master."""
+
+    def __init__(self, params: List[torch.Tensor]):
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               tx: Optimizer, lr: float) -> None:
+        """One AdamW step on `params` in place, as optax computes it."""
+        self.count += 1
+        # (1 - b)·g + b·m, rounded where optax rounds
+        mu = torch._foreach_mul(grads, 1 - tx.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(self.mu, tx.b1))
+        nu = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(nu, 1 - tx.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(self.nu, tx.b2))
+        self.mu, self.nu = mu, nu
+        bc1 = float(1 - np.float32(tx.b1) ** np.float32(self.count))
+        bc2 = float(1 - np.float32(tx.b2) ** np.float32(self.count))
+        mu_hat = torch._foreach_div(self.mu, np.float32(bc1).item())
+        denom = torch._foreach_div(self.nu, np.float32(bc2).item())
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, tx.eps)
+        upd = torch._foreach_div(mu_hat, denom)
+        if tx.weight_decay:
+            torch._foreach_add_(upd, params, alpha=tx.weight_decay)
+        torch._foreach_add_(params, upd, alpha=-lr)
+
+
+def make_optimizer(
+    lr: Union[float, Schedule] = 1e-4,
+    weight_decay: float = 1e-2,
+    grad_clip_norm: Optional[float] = 12.0,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> Optimizer:
+    """AdamW with global-norm clipping (reference defaults)."""
+    schedule = lr if callable(lr) else constant_schedule(float(lr))
+    return Optimizer(schedule, weight_decay, grad_clip_norm, b1, b2, eps)
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt(Σ g²) over every gradient, as a device scalar (`optax.global_norm`)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor) -> None:
+    """`optax.clip_by_global_norm` in place: (g / norm)·max_norm where norm
+    ≥ max_norm, g unchanged below it (divided and multiplied by 1). No host
+    synchronisation."""
+    below = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(below, one, norm))
+    torch._foreach_mul_(grads, torch.where(below, one, torch.full_like(norm, max_norm)))
+
+
+def master_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's parameters as fp32 masters, by name: an fp32 parameter
+    is its own master, any other gets an fp32 copy."""
+    return {n: p if p.dtype == torch.float32 else p.detach().float()
+            for n, p in model.named_parameters()}
+
+
+class TrainState:
+    """Step count, fp32 master parameters (by the module's parameter names;
+    what checkpoints save) and the AdamW state over them."""
+
+    def __init__(self, step: int, params: Dict[str, torch.Tensor],
+                 opt_state: AdamWState, tx: Optimizer):
+        self.step = step
+        self.params = params
+        self.opt_state = opt_state
+        self.tx = tx
+
+    @classmethod
+    def create(cls, params: Dict[str, torch.Tensor], tx: Optimizer) -> "TrainState":
+        return cls(0, params, AdamWState(list(params.values())), tx)
+
+    def apply_gradients(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """Clip `grads` (fp32, in the masters' order, modified in place),
+        take one AdamW step on the masters at `schedule(step)` and count it.
+        Returns the unclipped global norm as a device scalar."""
+        norm = global_norm(grads)
+        if self.tx.grad_clip_norm is not None:
+            clip_by_global_norm(grads, self.tx.grad_clip_norm, norm)
+        with torch.no_grad():
+            self.opt_state.update(list(self.params.values()), grads, self.tx,
+                                  self.tx.schedule(self.step))
+        self.step += 1
+        return norm
+
+    def moments(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """AdamW's first and second moments by parameter name."""
+        names = list(self.params)
+        return dict(zip(names, self.opt_state.mu)), dict(zip(names, self.opt_state.nu))
+
+    def load(self, params: Mapping[str, torch.Tensor], mu: Mapping[str, torch.Tensor],
+             nu: Mapping[str, torch.Tensor], step: int) -> None:
+        """Restore masters, moments and the step count in place (the
+        update count is the step count: one update a step)."""
+        with torch.no_grad():
+            for i, (n, p) in enumerate(self.params.items()):
+                p.copy_(params[n])
+                self.opt_state.mu[i].copy_(mu[n])
+                self.opt_state.nu[i].copy_(nu[n])
+        self.opt_state.count = self.step = int(step)
+
+    def copy_to(self, model: torch.nn.Module) -> None:
+        """Write the masters into the module's parameters where they are
+        copies (parameters in another dtype)."""
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                m = self.params[n]
+                if m is not p:
+                    p.copy_(m)
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+) -> Callable:
+    """`step(state, batch, generator=None) -> (state, metrics)`: forward in
+    the module's dtype (`generator` draws its drop-path masks), loss,
+    backward, fp32 gradients, clip, AdamW on the masters, masters back into
+    the module. `metrics` holds device scalars: the loss and the unclipped
+    gradient norm."""
+    named = dict(model.named_parameters())
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None):
+        for p in named.values():
+            p.grad = None
+        logits = model(batch["data"], generator=generator)
+        loss = loss_fn(logits, batch["seg"])
+        loss.backward()
+        # in the masters' order; a parameter the loss does not reach gets
+        # zeros, as its JAX gradient is
+        grads = [named[n].grad.float() if named[n].grad is not None else torch.zeros_like(m)
+                 for n, m in state.params.items()]
+        for p in named.values():
+            p.grad = None
+        norm = state.apply_gradients(grads)
+        state.copy_to(model)
+        return state, {"loss": loss.detach(), "grad_norm": norm}
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module) -> Callable:
+    """`step(image) -> logits`: a forward with no autograd record."""
+
+    def step(image: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return model(image)
+
+    return step
