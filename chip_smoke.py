@@ -85,6 +85,26 @@ Phases, each of which must pass:
      `state_dict_from_jax` into a fresh model, give eval logits equal to the
      trainer's, the warm steps/s through the trainer and its loader-wait
      share. Phase 10's launches count toward the kernels line.
+ 11. the front end and the deploy wrapper, in a temporary directory, from 3
+     raw cases as the BraTS download names them ((240, 240, 155) fp32
+     modalities nonzero in an ellipsoid brain, a seeded tumour with labels
+     1-3, under the non-RAS serving affine): `scripts.rename_data` (15
+     files), `scripts.convert_split` (the test list), `scripts.preprocess
+     --dataset-type mri --num-processes 2` (`plans.json` read back by
+     `Plans.load`; every stored channel of mean 0 and std 1 to 1e-5; seg
+     −1 outside the nonzero mask; `class_locations` for labels 1-3; one
+     case run again in-process through `run_case_npy`, equal to the
+     worker's artifact), `scripts.predict --tta 8` on those artifacts with
+     the seed-0 flagship's JAX-format checkpoint, `deploy.process` on the
+     renamed raw tree (each label map at the raw shape, exactly the source
+     affine, voxel-equal to `scripts.predict`'s), both with exactly 14
+     `tma_wgmma` attention and 10 `tma_ring` stencil launches per forward
+     (forwards counted from the inferer's own window grid for the
+     preprocessed shapes), then `scripts.compute_metrics` on the deploy
+     outputs (a finite (3, 3, 2) result); the preprocessing host s/case,
+     the deploy s/case split into read, preprocess, card and write, and
+     the metrics s/case on a line of their own. Phase 11's launches count
+     toward the kernels line.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -193,6 +213,12 @@ TRAIN_STEPS_PER_EPOCH = 4
 SERVING_RAW_SHAPE = (240, 240, 155)
 SERVING_AFFINE = np.diag([-1.0, -1.0, 1.0, 1.0]).astype(np.float32)
 SERVING_BBOXES = [((2, 152), (30, 210), (48, 193)), ((4, 154), (28, 208), (50, 195))]
+# the front-end phase: raw cases whose brain ellipsoid keeps this margin
+# (raw voxels X, Y, Z) from the faces, a crop of about (145, 179, 159) in
+# canonical (D, H, W), bucketed to 192³ as BraTS cases are; 2 workers
+FRONT_END_CASES = 3
+FRONT_END_MARGIN = (40, 30, 5)
+FRONT_END_WORKERS = 2
 
 
 def log(msg):
@@ -848,6 +874,185 @@ def run_training_script(ac, dc):
     return ok, counts
 
 
+def same(a, b):
+    """Equal type, structure and content (arrays by dtype and value)."""
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(same, a, b))
+    return type(a) is type(b) and a == b
+
+
+def forwards_per_case(inferer, spatial):
+    """Forwards the inferer runs on one (C, *spatial) case: its patch grid
+    on the bucketed shape in chunks of `sw_batch_size`, once per mirror
+    orientation."""
+    from waveformer_tpu_torch.inference.sliding_window import dense_patch_starts
+
+    n = len(dense_patch_starts(inferer.padded_shape(spatial), inferer.roi_size,
+                               inferer.overlap))
+    return -(-n // inferer.sw_batch_size) * 2 ** len(inferer.mirror_axes or ())
+
+
+def kernel_launches(ac, dc, forwards):
+    """The launches of this run against 14 `tma_wgmma` attention and 10
+    `tma_ring` stencil launches per flagship forward, none on the fallback
+    designs."""
+    counts = {"window_attention": ac.launches, "dwconv3": dc.launches}
+    designs = {"window_attention": dict(ac.design_launches),
+               "dwconv3": dict(dc.design_launches)}
+    ok = (counts == {"window_attention": 14 * forwards, "dwconv3": 10 * forwards}
+          and designs == {"window_attention": {"fma": 0, "tma_wgmma": 14 * forwards},
+                          "dwconv3": {"vector": 0, "tma_ring": 10 * forwards}})
+    return ok, counts, designs
+
+
+def run_front_end(ac, dc):
+    """Phase 11: rename → convert_split → preprocess (2 workers) → predict
+    → deploy → compute_metrics from raw BraTS-named (240, 240, 155) cases,
+    each step through its script's `main`."""
+    from waveformer_tpu_torch.config import load_config
+    from waveformer_tpu_torch.data.planning import Plans
+    from waveformer_tpu_torch.data.preprocessing import (
+        MultiModalityPreprocessor, create_nonzero_mask, crop_to_bbox)
+    from waveformer_tpu_torch.deploy import process
+    from waveformer_tpu_torch.inference import SlidingWindowInferer
+    from waveformer_tpu_torch.scripts import (
+        compute_metrics, convert_split, predict, preprocess, rename_data)
+    from waveformer_tpu_torch.tools import synthetic_cases
+    from waveformer_tpu_torch.utils import nifti
+
+    checks, n = {}, FRONT_END_CASES
+    with tempfile.TemporaryDirectory() as root:
+        raw, fullres = os.path.join(root, "raw"), os.path.join(root, "fullres")
+        t0 = time.time()
+        names = synthetic_cases.write_raw_cases(raw, np.random.default_rng(SEED),
+                                                SERVING_RAW_SHAPE, SERVING_AFFINE, n,
+                                                margin=FRONT_END_MARGIN)
+        config = os.path.join(root, "config.yaml")
+        with open(config, "w") as f:
+            f.write(serving_config_text(root))
+        cfg = load_config(config)
+        ckpt = os.path.join(root, "logs", "model", "best_model_0.0000_chip_smoke.npz")
+        synthetic_cases.write_checkpoint(ckpt, cfg.network.model_kwargs(), seed=SEED)
+        setup_s = time.time() - t0
+
+        # 2: the BraTS names stripped, the test list pickled
+        named = sum(f.startswith(c + "-") for c in names for f in os.listdir(os.path.join(raw, c)))
+        rename_data.main([raw])
+        files = sorted(f"{m}.nii.gz" for m in (*synthetic_cases.BRATS_MODALITIES, "seg"))
+        checks["renamed_15"] = named == 15 and all(
+            sorted(os.listdir(os.path.join(raw, c))) == files for c in names)
+        txt = os.path.join(root, "test_cases.txt")
+        with open(txt, "w") as f:
+            f.write("\n".join(names) + "\n")
+        os.makedirs(os.path.join(root, "data_list"))
+        convert_split.main([txt, os.path.join(root, "data_list", "test_list.pkl")])
+        with open(os.path.join(root, "data_list", "test_list.pkl"), "rb") as f:
+            checks["test_list"] = pickle.load(f) == names
+
+        # 3: plan + preprocess in a 2-worker spawn pool
+        t0 = time.time()
+        done = preprocess.main(["--config", config, "--dataset-type", "mri",
+                                "--num-processes", str(FRONT_END_WORKERS)])
+        preprocess_s = time.time() - t0
+        plans = Plans.load(os.path.join(fullres, "plans.json"))
+        checks["plans"] = done == names and plans.normalization == "zscore"
+        spatial, stored, moments = {}, {}, []
+        for name in names:
+            with np.load(os.path.join(fullres, name + ".npz")) as z:
+                stored[name] = (z["data"], z["seg"])
+            with open(os.path.join(fullres, name + ".pkl"), "rb") as f:
+                props = pickle.load(f)
+            data = stored[name][0].reshape(4, -1).astype(np.float64)
+            moments.append(max(float(np.abs(data.mean(1)).max()),
+                               float(np.abs(data.std(1) - 1).max())))
+            spatial[name] = stored[name][0].shape[1:]
+            locs = props["class_locations"]
+            checks.setdefault("class_locations_1_2_3", True)
+            checks["class_locations_1_2_3"] &= (sorted(locs) == [1, 2, 3]
+                                                and all(len(v) for v in locs.values()))
+        checks["zscore_1e-5"] = max(moments) <= 1e-5
+        pp = MultiModalityPreprocessor(base_dir=root, image_dir="raw")
+        data, seg, props = pp.read_data(names[0])
+        mask = create_nonzero_mask(data)  # before run_case_npy normalises in place
+        data, seg, props = pp.run_case_npy(data, seg, props)
+        mask = crop_to_bbox(mask, props["bbox_used_for_cropping"])
+        checks["seg_-1_outside_mask"] = (bool((seg[0][~mask] == -1).all())
+                                         and bool((seg[0][mask] >= 0).all())
+                                         and spatial[names[0]] != props["shape_before_cropping"])
+        with open(os.path.join(fullres, names[0] + ".pkl"), "rb") as f:
+            checks["worker_equals_in_process"] = (
+                np.array_equal(data, stored[names[0]][0])
+                and np.array_equal(seg, stored[names[0]][1]) and same(props, pickle.load(f)))
+        del data, seg, stored
+
+        inferer = SlidingWindowInferer(cfg.prediction.patch_size, cfg.prediction.sw_batch_size,
+                                       cfg.prediction.overlap, mirror_axes=(0, 1, 2),
+                                       tta_mode="patch", layout="channels_first")
+        forwards = sum(forwards_per_case(inferer, spatial[c]) for c in names)
+
+        # 4: scripts.predict on the artifacts
+        zero_counts(ac, dc)
+        t0 = time.time()
+        summary = predict.main(["--config", config, "--tta", "8"])
+        predict_s = time.time() - t0
+        ok, predict_counts, predict_designs = kernel_launches(ac, dc, forwards)
+        checks["predict_launches"] = ok and summary["cases"] == n
+
+        # 5: the deploy wrapper on the renamed raw tree
+        out = os.path.join(root, "deploy")
+        zero_counts(ac, dc)
+        t0 = time.time()
+        algo = process.main(["--checkpoint", ckpt, "--config", config, "--input-dir", raw,
+                             "--output-dir", out])
+        deploy_s = time.time() - t0
+        ok, deploy_counts, deploy_designs = kernel_launches(ac, dc, forwards)
+        checks["deploy_launches"] = ok and len(algo.case_times) == n
+        equal = []
+        for name in names:
+            got = nifti.load(os.path.join(out, name + ".nii.gz"))
+            want = nifti.load(os.path.join(root, "predictions", name + ".nii.gz"))
+            equal.append(got.data.shape == SERVING_RAW_SHAPE
+                         and np.array_equal(got.affine, SERVING_AFFINE)
+                         and np.array_equal(got.data, want.data)
+                         and np.array_equal(got.affine, want.affine))
+        checks["deploy_equals_predict"] = all(equal)
+        del algo.model, algo.predictor
+        torch.cuda.empty_cache()
+
+        # 6: metrics of the deploy outputs against the raw seg
+        t0 = time.time()
+        results = compute_metrics.main(["--config", config, "--pred-dir", out,
+                                        "--out", os.path.join(root, "result_metrics.npy")])
+        metrics_s = time.time() - t0
+        checks["metrics"] = results.shape == (n, 3, 2) and bool(np.isfinite(results).all())
+
+    ok = all(checks.values())
+    log(json.dumps({"check": "front_end", "cases": n, "raw_shape": list(SERVING_RAW_SHAPE),
+                    "preprocessed_shapes": [list(spatial[c]) for c in names],
+                    "forwards": forwards, "zscore_max_abs_err": max(moments),
+                    "predict_launches": predict_counts, "predict_designs": predict_designs,
+                    "deploy_launches": deploy_counts, "deploy_designs": deploy_designs,
+                    "deploy_equal_predict": equal, "metrics": results.tolist(),
+                    "checks": checks, "ok": ok}))
+    case_times = {k: [t[k] for t in algo.case_times]
+                  for k in ("read_s", "preprocess_s", "predict_s", "write_s")}
+    log(json.dumps({"check": "front_end_times", "setup_s": setup_s,
+                    "preprocess_script_s": preprocess_s,
+                    "preprocess_host_s_per_case": preprocess_s / n,
+                    "workers": FRONT_END_WORKERS, "predict_script_s_per_case": predict_s / n,
+                    "deploy_s": deploy_s,
+                    "deploy_s_per_case": [sum(t[k] for k in case_times) for t in algo.case_times],
+                    "deploy_host_s_per_case": [t["read_s"] + t["preprocess_s"]
+                                               for t in algo.case_times],
+                    **{f"deploy_{k}": v for k, v in case_times.items()},
+                    "metrics_s_per_case": metrics_s / n}))
+    return ok, {k: predict_counts[k] + deploy_counts[k] for k in predict_counts}
+
+
 def bound(nbytes, t_ops_s):
     """(bound_ms, bound_by): the larger of the bytes at the HBM rate and the
     operations' time at their peak rate."""
@@ -1302,7 +1507,8 @@ def main():
     if not check_train_step_vs_cpu(create_waveformer, ac, dc):
         failed.append("train_step_card_vs_cpu")
     for phase, fn in (("flagship_training", run_flagship_training),
-                      ("training_script", run_training_script)):
+                      ("training_script", run_training_script),
+                      ("front_end", run_front_end)):
         ok, counts = fn(ac, dc)
         if not ok:
             failed.append(phase)

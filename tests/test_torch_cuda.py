@@ -829,3 +829,85 @@ class TestTrainingOnCard:
         (l0, n0, p0), (l1, n1, p1) = out["cpu"], out[str(cuda_device)]
         assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(n1 - n0) <= 1e-3 * n0
         assert max(float((p1[k] - p0[k]).abs().max()) for k in p0) <= 1e-5
+
+
+def _front_end_tree(root, n):
+    """`n` raw BraTS-named cases (46, 50, 42) under a non-RAS affine,
+    renamed, with the 32³ network's bf16 config and a seed-0 checkpoint."""
+    import os
+
+    from waveformer_tpu_torch.config import load_config
+    from waveformer_tpu_torch.scripts import rename_data
+    from waveformer_tpu_torch.tools import synthetic_cases
+
+    affine = np.diag([-1.0, -1.0, 1.0, 1.0]).astype(np.float32)
+    raw = os.path.join(str(root), "raw")
+    names = synthetic_cases.write_raw_cases(raw, np.random.default_rng(0), (46, 50, 42),
+                                            affine, n, margin=(4, 5, 3))
+    rename_data.rename_dataset(raw)
+    config = os.path.join(str(root), "config.yaml")
+    with open(config, "w") as f:
+        f.write(f'data_dir: "{root}/fullres"\nraw_data_dir: "{raw}"\n'
+                f'compute_dtype: "bfloat16"\nlogging:\n  enabled: false\n'
+                f'prediction:\n  patch_size: [32, 32, 32]\n  sw_batch_size: 8\n'
+                f'  overlap: 0.5\n' + SERVING_NET)
+    ckpt = os.path.join(str(root), "model.npz")
+    synthetic_cases.write_checkpoint(ckpt, load_config(config).network.model_kwargs(), seed=0)
+    return raw, config, ckpt, names, affine
+
+
+@pytest.mark.cuda
+class TestFrontEndOnCard:
+    """The front end on the card's machine: the deploy wrapper from raw
+    BraTS-named NIfTIs through the kernels (launches per design equal to
+    its own in-process pipeline's, the file equal to that pipeline's), and
+    `scripts.preprocess` with 2 spawn workers equal to its in-process run."""
+
+    def test_deploy_launches_per_design(self, cuda_device, tmp_path):
+        import os
+
+        from waveformer_tpu_torch.deploy import process
+        from waveformer_tpu_torch.utils import nifti
+
+        raw, config, ckpt, names, affine = _front_end_tree(tmp_path, 1)
+        _zero_counts()
+        algo = process.main(["--checkpoint", ckpt, "--config", config, "--input-dir", raw,
+                             "--output-dir", str(tmp_path / "out")])
+        got_counts = _counts()
+        assert algo.device.type == "cuda"
+        _zero_counts()
+        data, _, props = algo.preprocessor.read_data(names[0])
+        data, _, props = algo.preprocessor.run_case_npy(data, None, props)
+        assert data.shape[1:] != props["shape_before_cropping"]  # a real crop
+        seg = algo.predictor.predict_case(data, algo.model, 4, props)
+        assert _counts() == got_counts
+        assert got_counts["attention"]["tma_wgmma"] == 0 and got_counts["attention"]["fma"] > 0
+        assert got_counts["dwconv3"]["tma_ring"] > 0
+        ref = str(tmp_path / "ref.nii.gz")
+        algo.predictor.save_to_nii(seg, ref, properties=props)
+        out = nifti.load(os.path.join(str(tmp_path / "out"), names[0] + ".nii.gz"))
+        assert out.data.shape == (46, 50, 42)
+        np.testing.assert_array_equal(out.affine, affine)
+        np.testing.assert_array_equal(out.data, nifti.load(ref).data)
+
+    def test_preprocess_two_workers(self, cuda_device, tmp_path):
+        import os
+        import pickle
+
+        from waveformer_tpu_torch.scripts import preprocess
+
+        raw, config, _, names, _ = _front_end_tree(tmp_path, 3)
+        done = preprocess.main(["--config", config, "--num-processes", "2"])
+        assert done == names
+        preprocess.main(["--config", config, "--num-processes", "1",
+                         "--out-dir", str(tmp_path / "one")])
+        fullres = str(tmp_path / "fullres")
+        assert sorted(os.listdir(fullres)) == sorted(os.listdir(str(tmp_path / "one")))
+        for name in names:
+            with np.load(os.path.join(fullres, name + ".npz")) as a, \
+                    np.load(os.path.join(str(tmp_path / "one"), name + ".npz")) as b:
+                for k in ("data", "seg"):
+                    np.testing.assert_array_equal(a[k], b[k])
+            with open(os.path.join(fullres, name + ".pkl"), "rb") as f:
+                props = pickle.load(f)
+            assert sorted(props["class_locations"]) == [1, 2, 3]

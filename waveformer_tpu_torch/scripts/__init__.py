@@ -1,1 +1,2 @@
-"""Command-line entry points: predict and compute_metrics."""
+"""Command-line entry points: the five-step pipeline (rename_data,
+convert_split, preprocess, train, predict, compute_metrics)."""

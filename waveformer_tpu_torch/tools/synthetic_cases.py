@@ -17,6 +17,10 @@ scripts (`scripts/predict.py`, `scripts/compute_metrics.py`) and training
 `write_checkpoint(path, network_kwargs)` writes a seeded model's
 parameters as a params `.npz` in the JAX package's format.
 
+`write_raw_cases(raw_dir, rng, shape, affine, n)` writes raw cases as the
+BraTS download names them, for the front end (`scripts/rename_data.py`,
+`scripts/preprocess.py`, `deploy/process.py`).
+
 `write_training_cases(fullres, n, shape)` writes preprocessed training
 cases as `tools/bench_train.py::make_cases` makes them: (4, *shape) fp32
 data, an int8 seg with classes 1-3 in three boxes, and a `.pkl` with
@@ -97,6 +101,52 @@ def write_cases(
     with open(os.path.join(root, "data_list", "test_list.pkl"), "wb") as f:
         pickle.dump(names, f)
     unpack_dataset(fullres, num_processes=1)
+    return names
+
+
+BRATS_MODALITIES = ("t2w", "t2f", "t1n", "t1c")
+
+
+def write_raw_cases(
+    raw_dir: str,
+    rng: np.random.Generator,
+    shape: Tuple[int, int, int],
+    affine: np.ndarray,
+    n: int,
+    margin: Sequence[int] = (3, 3, 2),
+) -> List[str]:
+    """`n` raw cases `BraTS-GLI-{i:05d}-000/BraTS-GLI-{i:05d}-000-{t2w,t2f,
+    t1n,t1c,seg}.nii.gz` under `raw_dir`: (X, Y, Z) = `shape` volumes under
+    `affine`. The four fp32 modalities are nonzero only inside an
+    ellipsoid "brain" that keeps `margin` voxels (per axis, on each side)
+    from the volume's faces, so preprocessing's crop is real and its
+    corners lie outside the mask. The uint8 seg holds a tumour
+    (`tumour_labels`: 3 core, 1 body, 2 shell) at a seeded position inside
+    the brain, brighter in every modality. Returns the case names."""
+    grid = np.ogrid[tuple(slice(0, s) for s in shape)]
+    centre = [(s - 1) / 2 for s in shape]
+    semi = [(s - 1) / 2 - m for s, m in zip(shape, margin)]
+    brain = sum(((g - c) / a) ** 2 for g, c, a in zip(grid, centre, semi)) < 1.0
+    radius = max(2, int(min(semi) / 3))
+    names = []
+    for i in range(n):
+        name = f"BraTS-GLI-{i:05d}-000"
+        case_dir = os.path.join(raw_dir, name)
+        os.makedirs(case_dir)
+        at = [int(c + rng.integers(-a // 4, a // 4 + 1)) for c, a in zip(centre, semi)]
+        seg = np.zeros(shape, np.uint8)
+        box = tuple(slice(a - radius, a + radius + 1) for a in at)
+        seg[box] = tumour_labels((2 * radius + 1,) * 3, radius)
+        seg[~brain] = 0
+        for k, mod in enumerate(BRATS_MODALITIES):
+            vol = rng.standard_normal(shape, dtype=np.float32) + np.float32(2 + k)
+            vol += seg > 0
+            vol[~brain] = 0.0
+            nifti.save(nifti.NiftiImage(data=vol, affine=affine),
+                       os.path.join(case_dir, f"{name}-{mod}.nii.gz"))
+        nifti.save(nifti.NiftiImage(data=seg, affine=affine),
+                   os.path.join(case_dir, f"{name}-seg.nii.gz"))
+        names.append(name)
     return names
 
 
