@@ -105,6 +105,27 @@ Phases, each of which must pass:
      the deploy s/case split into read, preprocess, card and write, and
      the metrics s/case on a line of their own. Phase 11's launches count
      toward the kernels line.
+ 12. SSL pretraining, which runs none of the port's kernels (its attention
+     is flax's plain multi-head attention, in the port
+     `F.scaled_dot_product_attention`; its decoder convs are cuDNN's):
+     every kernel's launches are counted over the phase and must stay 0.
+     (a) one fp32 SSL step (two context-restoration views, NT-Xent × L1 +
+     L1, AdamW without clipping on fp32 masters) of a 32³ SSLViT (patch 8,
+     hidden 64, 2 layers) at batch 2, the card against the CPU from the
+     same carried weights and views, at phase 10a's limits; (b) the
+     pretraining script's default SSLViT (ViT-B: 96³, patch 16, hidden 768,
+     12 layers, 12 heads, the vae decoder, about 108 M parameters) in bf16
+     on fp32 masters, one resident batch of 2 and pair of views: 2 warm-up
+     steps, device ms a step by CUDA events over 5, peak memory, finite
+     losses with the 5th below the 1st; (c) `scripts.pretrain_ssl.main` at
+     its default widths in both data modes (`--data-dir`: 4 synthetic
+     (4, 150, 180, 145) cases, 2 workers, 12 steps, validation every 6;
+     `--datalist-json`: 3 CT-like (192, 192, 128) int16 volumes, cached, 4
+     steps, validation every 2): finite losses, best and final `.npz`, the
+     final one reloaded into a fresh SSLViT with fp32 outputs equal to the
+     trainer's, the warm steps/s and loader-wait share from
+     `SSLTrainer.step_times`. To iterate on it alone: `chip_smoke.run_ssl()`
+     after `_build.LIBRARIES.build_all()` and TF32 off.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -219,6 +240,21 @@ SERVING_BBOXES = [((2, 152), (30, 210), (48, 193)), ((4, 154), (28, 208), (50, 1
 FRONT_END_CASES = 3
 FRONT_END_MARGIN = (40, 30, 5)
 FRONT_END_WORKERS = 2
+# phase 12, SSL pretraining: 12a's SSLViT, card against CPU in fp32 (the
+# gates are phase 10a's TRAIN_STEP_TOL); 12b's, the pretraining script's
+# defaults (ViT-B, about 108 M parameters, 216 tokens a volume)
+SSL_STEP_CONFIG = dict(img_size=(32, 32, 32), patch_size=8, in_channels=4, hidden_size=64,
+                       mlp_dim=256, num_layers=2, num_heads=4, projection_size=16,
+                       upsample_mode="vae")
+SSL_FULL_CONFIG = dict(img_size=(96, 96, 96), patch_size=16, in_channels=4, hidden_size=768,
+                       mlp_dim=3072, num_layers=12, num_heads=12, projection_size=256,
+                       upsample_mode="vae")
+SSL_WARMUP_STEPS = 2
+SSL_RESIDENT_STEPS = 5
+SSL_SCRIPT_STEPS = 12
+# 12c's datalist mode: CT-like int16 volumes (X, Y, Z), one of them validates
+SSL_CT_VOLUMES = 3
+SSL_CT_SHAPE = (192, 192, 128)
 
 
 def log(msg):
@@ -741,7 +777,8 @@ def run_flagship_training(ac, dc):
     torch.manual_seed(SEED)
     model = train.build_model(Config(), torch.device("cuda")).train()
     n_params = sum(p.numel() for p in model.parameters())
-    state = TrainState.create(master_params(model), make_optimizer(lr=1e-4))
+    # fp32 masters from the fp32 weights, then the module in bf16
+    state = TrainState.create(master_params(model, torch.bfloat16), make_optimizer(lr=1e-4))
     step = make_train_step(model, dice_ce_loss)
     seg = torch.from_numpy(tumour_labels((128,) * 3, 40).astype(np.int32))
     seg = seg[None, ..., None].expand(2, -1, -1, -1, -1).contiguous().cuda()
@@ -854,6 +891,7 @@ def run_training_script(ac, dc):
             fresh.load_state_dict(state_dict_from_jax(
                 load_params_npz(os.path.join(model_dir, name)), t.depths, t.hf_refinement),
                 strict=True)
+            fresh.set_compute_dtype(trainer.model.compute_dtype)
             with torch.no_grad():
                 equal[name] = bool(torch.equal(fresh(x), want))
             del fresh
@@ -1051,6 +1089,279 @@ def run_front_end(ac, dc):
                     **{f"deploy_{k}": v for k, v in case_times.items()},
                     "metrics_s_per_case": metrics_s / n}))
     return ok, {k: predict_counts[k] + deploy_counts[k] for k in predict_counts}
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: SSL pretraining
+# --------------------------------------------------------------------------- #
+
+
+def kernel_counts():
+    """Every port kernel's launches so far, by kernel (and by the conv's and
+    the matmul's entry points)."""
+    from waveformer_tpu_torch.ops import (attention_cuda, conv_cuda, dwconv_cuda,
+                                          ffn_tail_cuda, fused_conv_cuda,
+                                          tiled_matmul_cuda)
+
+    return {"window_attention": attention_cuda.launches, "dwconv3": dwconv_cuda.launches,
+            **conv_cuda.launches, "conv3x3x3_fused": fused_conv_cuda.launches,
+            "ffn_tail": ffn_tail_cuda.launches,
+            "ln_gelu_dense": ffn_tail_cuda.ln_gelu_dense_launches,
+            **tiled_matmul_cuda.launches}
+
+
+def zero_kernel_counts():
+    from waveformer_tpu_torch.ops import (attention_cuda, conv_cuda, dwconv_cuda,
+                                          ffn_tail_cuda, fused_conv_cuda,
+                                          tiled_matmul_cuda)
+
+    zero_counts(attention_cuda, dwconv_cuda, ffn_tail_cuda)
+    ffn_tail_cuda.ln_gelu_dense_launches = 0
+    fused_conv_cuda.launches = 0
+    for counts in (conv_cuda.launches, conv_cuda.design_launches, tiled_matmul_cuda.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def ssl_views(batch, seed=SEED):
+    """The trainer's two context-restoration views of a channels-last host
+    batch, channels-last."""
+    from waveformer_tpu_torch.training.ssl import make_two_views
+
+    v1, v2 = make_two_views(batch.transpose(0, 4, 1, 2, 3), np.random.RandomState(seed))
+    return [np.ascontiguousarray(v.transpose(0, 2, 3, 4, 1)) for v in (v1, v2)]
+
+
+def smooth_volumes(shape, seed=SEED):
+    """(B, D, H, W, C) fp32 host volumes of low-frequency structure (a 6³
+    random grid resized trilinearly), which a decoder can learn to
+    reconstruct in a few steps."""
+    b, *spatial, c = shape
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.randn(b, c, 6, 6, 6, generator=g)
+    vol = F.interpolate(coarse, size=tuple(spatial), mode="trilinear", align_corners=False)
+    return vol.permute(0, 2, 3, 4, 1).contiguous().numpy()
+
+
+def check_ssl_step_vs_cpu(device="cuda"):
+    """Phase 12a: one fp32 SSL step (two views, NT-Xent × L1 + L1, AdamW
+    without clipping on fp32 masters) of a 32³ SSLViT at batch 2, the card
+    against the CPU from the same carried weights and views."""
+    from waveformer_tpu_torch.models.ssl import create_ssl_vit
+    from waveformer_tpu_torch.training.ssl import make_ssl_step
+    from waveformer_tpu_torch.training.state import TrainState, make_optimizer, master_params
+
+    cfg = SSL_STEP_CONFIG
+    # phase 10a's kind of batch (standard normal). On smooth volumes some
+    # patch-embedding gradients are near 0, where AdamW's first step
+    # g / (|g| + eps) turns fp32 rounding into up to ±lr: two CPU runs of
+    # that step, 1 and 4 threads, differ by 6.2e-5 there
+    gt = np.random.default_rng(SEED).standard_normal(
+        (2, *cfg["img_size"], cfg["in_channels"])).astype(np.float32)
+    v1, v2 = ssl_views(gt)
+    weights = create_ssl_vit(device="cpu", seed=SEED, **cfg).state_dict()
+    out = {}
+    for dev in ("cpu", device):
+        model = create_ssl_vit(device=dev, **cfg).train()
+        model.load_state_dict(weights, strict=True)
+        state = TrainState.create(master_params(model), make_optimizer(
+            lr=1e-4, weight_decay=1e-5, grad_clip_norm=None))
+        _, m = make_ssl_step(model)(state, *(torch.from_numpy(a).to(dev) for a in (v1, v2, gt)))
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    {k: v.detach().cpu() for k, v in state.params.items()})
+    (l_cpu, n_cpu, p_cpu), (l_dev, n_dev, p_dev) = out["cpu"], out[device]
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    norm_rel = abs(n_dev - n_cpu) / n_cpu
+    master_err = max(float((p_dev[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    moved = max(float((p_cpu[k] - weights[k]).abs().max()) for k in p_cpu)
+    ok = (loss_rel <= TRAIN_STEP_TOL["loss_rel"] and norm_rel <= TRAIN_STEP_TOL["grad_norm_rel"]
+          and master_err <= TRAIN_STEP_TOL["master_abs"] and moved > 0
+          and np.isfinite(l_dev) and np.isfinite(n_dev))
+    log(json.dumps({"check": "ssl_step_card_vs_cpu_fp32", "config": cfg, "batch": 2,
+                    "loss": [l_cpu, l_dev], "loss_rel_err": loss_rel,
+                    "grad_norm": [n_cpu, n_dev], "grad_norm_rel_err": norm_rel,
+                    "master_max_abs_err": master_err, "master_max_abs_update": moved,
+                    "tolerances": TRAIN_STEP_TOL, "ok": bool(ok)}))
+    return ok
+
+
+def run_ssl_resident(device="cuda"):
+    """Phase 12b: the script's default SSLViT (ViT-B: 96³, patch 16, hidden
+    768, 12 layers, 12 heads; the vae decoder) in bf16 on fp32 masters, on
+    one resident batch of 2 and one resident pair of views: 2 warm-up steps,
+    then device ms a step by CUDA events over 5, and peak memory. Gates:
+    every loss finite, the 5th step's below the 1st."""
+    from waveformer_tpu_torch.models.ssl import create_ssl_vit
+    from waveformer_tpu_torch.training.ssl import SSLTrainer, make_ssl_step
+
+    cfg = SSL_FULL_CONFIG
+    steps = SSL_WARMUP_STEPS + SSL_RESIDENT_STEPS
+    gt = smooth_volumes((2, *cfg["img_size"], cfg["in_channels"]))
+    v1, v2 = (torch.from_numpy(a).to(device) for a in ssl_views(gt))
+    gt = torch.from_numpy(gt).to(device)
+    model = create_ssl_vit(device=device, seed=SEED, **cfg).train()
+    with tempfile.TemporaryDirectory() as root:
+        trainer = SSLTrainer(model, num_steps=steps, lr=4e-4, warmup_steps=1, logdir=root,
+                             seed=SEED, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer._init_state()
+    n_params = sum(p.numel() for p in state.params.values())
+    step = make_ssl_step(model)
+    losses = []
+
+    def one():
+        _, m = step(state, v1, v2, gt)
+        losses.append(m["loss"])
+
+    t0 = time.time()
+    for _ in range(SSL_WARMUP_STEPS):
+        one()
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * 50)
+    start.record()
+    for _ in range(SSL_RESIDENT_STEPS):
+        one()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / SSL_RESIDENT_STEPS
+    losses = [float(x) for x in losses]
+    ok = bool(np.isfinite(losses).all()) and losses[4] < losses[0]
+    row = {"check": "ssl_resident", "config": {k: list(v) if isinstance(v, tuple) else v
+                                                for k, v in cfg.items()},
+           "params": n_params, "batch": 2, "dtype": "bfloat16", "steps": steps,
+           "losses": losses, "warmup_s": warmup_s, "device_ms_per_step": ms,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "ok": ok}
+    log(json.dumps(row))
+    del model, state, step, v1, v2, gt
+    torch.cuda.empty_cache()
+    return ok
+
+
+def write_ct_volumes(root, n, shape=SSL_CT_SHAPE, seed=SEED):
+    """`n` CT-like int16 volumes (HU: air at -1000 around a body ellipsoid
+    of soft tissue with noise) as `.nii.gz` under `root`, and a decathlon
+    JSON listing them for training only. Returns the JSON's path."""
+    from waveformer_tpu_torch.utils import nifti
+
+    rng = np.random.default_rng(seed)
+    axes = np.meshgrid(*(np.linspace(-1.0, 1.0, s, dtype=np.float32) for s in shape),
+                       indexing="ij", sparse=True)
+    body = sum((a / r) ** 2 for a, r in zip(axes, (0.8, 0.7, 0.9))) <= 1.0
+    os.makedirs(os.path.join(root, "ct"), exist_ok=True)
+    for i in range(n):
+        hu = 40.0 + 50.0 * rng.standard_normal(shape, dtype=np.float32)
+        vol = np.where(body, hu, -1000.0).astype(np.int16)
+        nifti.save(nifti.NiftiImage(data=vol), os.path.join(root, "ct", f"ct_{i}.nii.gz"))
+    path = os.path.join(root, "dataset.json")
+    with open(path, "w") as f:
+        json.dump({"training": [f"ct/ct_{i}.nii.gz" for i in range(n)]}, f)
+    return path
+
+
+def run_ssl_script(device="cuda", extra=()):
+    """Phase 12c: `scripts.pretrain_ssl.main` at its default (ViT-B) widths
+    in a temporary directory, in both data modes: `--data-dir` over 4
+    synthetic preprocessed (4, 150, 180, 145) cases with 2 loader workers,
+    12 steps, validation every 6; `--datalist-json` over 3 CT-like volumes,
+    cached, 4 steps, validation every 2. Gates: finite losses, best and
+    final `.npz` written, the final one loaded through
+    `ssl_state_dict_from_jax` into a fresh SSLViT with outputs
+    `torch.equal` to the trainer's module's in fp32."""
+    from waveformer_tpu_torch.models.ssl import create_ssl_vit
+    from waveformer_tpu_torch.scripts import pretrain_ssl
+    from waveformer_tpu_torch.tools import synthetic_cases
+    from waveformer_tpu_torch.training.checkpoint import load_params_npz
+    from waveformer_tpu_torch.utils.jax_params import ssl_state_dict_from_jax
+
+    ok = True
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        synthetic_cases.write_training_cases(os.path.join(root, "fullres"), n=4,
+                                             shape=CASE_SHAPE[1:], seed=SEED)
+        datalist = write_ct_volumes(root, SSL_CT_VOLUMES)
+        setup_s = time.time() - t0
+        modes = {
+            "data_dir": ["--data-dir", os.path.join(root, "fullres"), "--num-workers", "2",
+                         "--batch-size", "2", "--num-steps", str(SSL_SCRIPT_STEPS),
+                         "--eval-every", str(SSL_SCRIPT_STEPS // 2), "--warmup-steps", "2"],
+            "datalist": ["--datalist-json", datalist, "--cache-rate", "1",
+                         "--num-steps", "4", "--eval-every", "2"],
+        }
+        for mode, args in modes.items():
+            logdir = os.path.join(root, f"logs_{mode}")
+            t0 = time.time()
+            trainer = pretrain_ssl.main(args + ["--logdir", logdir, "--seed", str(SEED),
+                                                "--device", device, *extra])
+            script_s = time.time() - t0
+            with open(os.path.join(logdir, "metrics.jsonl")) as f:
+                scalars = [json.loads(line) for line in f]
+            losses = [r["value"] for r in scalars if r["tag"] == "loss"]
+            vals = [r["value"] for r in scalars if r["tag"] == "val_recon_l1"]
+            model_dir = os.path.join(logdir, "model")
+            names = sorted(f for f in os.listdir(model_dir) if f.endswith(".npz"))
+            good = (len(losses) >= 1 and len(vals) >= 1
+                    and bool(np.isfinite(losses + vals).all()) and len(names) == 2
+                    and names[0].startswith("best_model_")
+                    and names[1] == "final_model_0.0000_ssl_vit.npz")
+            # the final checkpoint in a fresh module against the trainer's
+            # module on its fp32 masters, in fp32
+            model = trainer.model
+            fresh = create_ssl_vit(device=device, img_size=model.vit.img_size,
+                                   patch_size=model.patch_size, in_channels=model.in_channels,
+                                   hidden_size=model.hidden_size,
+                                   mlp_dim=model.vit.block0.mlp_fc1.out_features,
+                                   num_layers=len(model.vit.blocks), num_heads=model.num_heads,
+                                   projection_size=model.proj_contrastive.out_features)
+            fresh.load_state_dict(ssl_state_dict_from_jax(
+                load_params_npz(os.path.join(model_dir, names[-1]))), strict=True)
+            model.set_compute_dtype(torch.float32)
+            trainer.state.copy_to(model)
+            x = torch.from_numpy(smooth_volumes((2, *model.vit.img_size, model.in_channels)))
+            with torch.no_grad():
+                want, got = model(x.to(device)), fresh(x.to(device))
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            good &= equal
+            # warm: every step after the first (cuDNN's choices, the first batch)
+            warm = trainer.step_times[1:]
+            total = sum(t for t, _ in warm)
+            # the steps that end in a validation (and a best checkpoint)
+            every = trainer.eval_every
+            val_s = [t for i, (t, _) in enumerate(trainer.step_times) if (i + 1) % every == 0]
+            other_s = [t for i, (t, _) in enumerate(warm, 1) if (i + 1) % every]
+            log(json.dumps({
+                "check": "ssl_script", "mode": mode, "setup_s": setup_s, "script_s": script_s,
+                "steps": len(trainer.step_times), "first_step_s": trainer.step_times[0][0],
+                "warm_steps_per_s": len(warm) / total,
+                "warm_loader_wait_share": sum(w for _, w in warm) / total,
+                "validation_step_s": val_s, "median_other_warm_step_s": float(np.median(other_s)),
+                "losses": losses, "val_recon_l1": vals, "best_val": trainer.best_val,
+                "checkpoints": names, "outputs_equal": equal, "ok": bool(good)}))
+            ok &= good
+            del trainer, model, fresh
+            torch.cuda.empty_cache()
+    return ok
+
+
+def run_ssl():
+    """Phase 12: 12a, 12b and 12c with every port kernel's launches counted
+    over them: none of the TPU kernels lies on the SSL path (its attention
+    is flax's plain multi-head attention, its convs `lax`'s), so every
+    count must stay 0. Returns the names of the sub-phases that failed."""
+    failed = []
+    zero_kernel_counts()
+    for name, fn in (("ssl_step_card_vs_cpu", check_ssl_step_vs_cpu),
+                     ("ssl_resident", run_ssl_resident), ("ssl_script", run_ssl_script)):
+        if not fn():
+            failed.append(name)
+    counts = kernel_counts()
+    ok = not any(counts.values())
+    log(json.dumps({"check": "ssl_kernel_launches", "launches": counts, "ok": ok}))
+    if not ok:
+        failed.append("ssl_kernel_launches")
+    return failed
 
 
 def bound(nbytes, t_ops_s):
@@ -1517,6 +1828,7 @@ def main():
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")
+    failed += run_ssl()
 
     def headline(rows, kname, source, replaces, **extra):
         # the main-path call with the largest bound; a bound set by the

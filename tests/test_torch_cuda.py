@@ -911,3 +911,35 @@ class TestFrontEndOnCard:
             with open(os.path.join(fullres, name + ".pkl"), "rb") as f:
                 props = pickle.load(f)
             assert sorted(props["class_locations"]) == [1, 2, 3]
+
+
+@pytest.mark.cuda
+class TestSslOnCard:
+    def test_ssl_step_card_vs_cpu(self, cuda_device):
+        """One fp32 SSL step of a 32³ SSLViT at batch 2, the card against
+        the CPU from the same weights and views: loss 1e-4 relative,
+        gradient norm 1e-3 relative, masters 1e-5 absolute (TF32 off)."""
+        from waveformer_tpu_torch.models.ssl import create_ssl_vit
+        from waveformer_tpu_torch.training.ssl import make_ssl_step, make_two_views
+        from waveformer_tpu_torch.training.state import TrainState, make_optimizer
+
+        cfg = dict(img_size=(32, 32, 32), patch_size=8, in_channels=4, hidden_size=64,
+                   mlp_dim=256, num_layers=2, num_heads=4, projection_size=16)
+        gt = np.random.default_rng(0).standard_normal((2, 32, 32, 32, 4)).astype(np.float32)
+        views = make_two_views(gt.transpose(0, 4, 1, 2, 3), np.random.RandomState(0))
+        v1, v2 = (np.ascontiguousarray(v.transpose(0, 2, 3, 4, 1)) for v in views)
+        weights = create_ssl_vit(device="cpu", seed=0, **cfg).state_dict()
+        out = {}
+        for dev in ("cpu", cuda_device):
+            model = create_ssl_vit(device=dev, **cfg).train()
+            model.load_state_dict(weights, strict=True)
+            state = TrainState.create(dict(model.named_parameters()), make_optimizer(
+                lr=1e-4, weight_decay=1e-5, grad_clip_norm=None))
+            _, m = make_ssl_step(model)(state, *(torch.from_numpy(a).to(dev)
+                                                 for a in (v1, v2, gt)))
+            out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                             {k: v.detach().cpu() for k, v in state.params.items()})
+        (l0, n0, p0), (l1, n1, p1) = out["cpu"], out[str(cuda_device)]
+        assert np.isfinite(l1) and abs(l1 - l0) <= 1e-4 * abs(l0)
+        assert abs(n1 - n0) <= 1e-3 * n0
+        assert max(float((p1[k] - p0[k]).abs().max()) for k in p0) <= 1e-5

@@ -452,10 +452,12 @@ def test_sdm_edge_dataset(fullres):
 
 
 def test_host_modules_import_no_torch():
-    """The five host modules of the front end load no torch (nor JAX), so
-    the preprocessing pool's spawn workers start without it."""
+    """The five host modules of the front end, and the SSL data module,
+    load no torch (nor JAX), so the preprocessing pool's spawn workers start
+    without it."""
     code = (
         "import sys\n"
+        "import waveformer_tpu_torch.data.ssl_data\n"
         "import waveformer_tpu_torch.data.preprocessing\n"
         "import waveformer_tpu_torch.data.dataset_variants\n"
         "import waveformer_tpu_torch.scripts.rename_data\n"

@@ -382,3 +382,55 @@ def test_upload_is_channels_last_and_typed(tmp_path):
                          "seg": np.ones((2, 4, 4, 4, 1), np.float32)})
     assert b["data"].dtype == torch.float32 and b["seg"].dtype == torch.int32
     assert b["data"].shape == (2, 4, 4, 4, 1)
+
+
+class TestBf16Masters:
+    """A bf16 trainer's fp32 masters are the fp32 weights it was built or
+    loaded from, not their bf16 rounding (JAX keeps fp32 params)."""
+
+    def test_init_state_keeps_fp32_weights(self, tmp_path):
+        t = _trainer(tmp_path, compute_dtype=torch.bfloat16)
+        state = t._init_state()
+        want = create_waveformer(TINY, device="cpu", seed=0, dtype=torch.float32)
+        assert t.model.compute_dtype == torch.bfloat16
+        for n, p in want.named_parameters():
+            assert state.params[n].dtype == torch.float32
+            assert torch.equal(state.params[n], p.detach()), n
+        # the relative-position tables stay fp32 in the module: their own masters
+        tables = [n for n, p in t.model.named_parameters() if p.dtype == torch.float32]
+        assert tables and all(n.endswith("relative_position_bias_table") for n in tables)
+        assert all(state.params[n] is dict(t.model.named_parameters())[n] for n in tables)
+
+    def test_loaded_checkpoint_becomes_the_masters(self, tiny_dataset, tmp_path):
+        from waveformer_tpu_torch.tools.synthetic_cases import write_checkpoint
+        from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
+
+        path = str(tmp_path / "ckpt.npz")
+        write_checkpoint(path, TINY, seed=3)
+        sd = state_dict_from_jax(load_params_npz(path), TINY["depths"])
+        assert any(not torch.equal(v, v.to(torch.bfloat16).float()) for v in sd.values())
+        ds = MedicalDataset(tiny_dataset, ["case_0"], unpack=False)
+        t = _trainer(tmp_path, max_epochs=0, compute_dtype=torch.bfloat16, resume=False)
+        t.load_params(path)
+        t.train(ds, ds)  # no epoch: the masters are taken and the module cast
+        assert t.model.compute_dtype == torch.bfloat16
+        for n, m in t.state.params.items():
+            assert torch.equal(m, sd[n]), n
+        for n, p in t.model.named_parameters():
+            assert torch.equal(p, sd[n].to(p.dtype)), n
+
+    def test_ssl_trainer_keeps_fp32_weights(self, tmp_path):
+        from waveformer_tpu_torch.models.ssl import create_ssl_vit
+        from waveformer_tpu_torch.training.ssl import SSLTrainer
+
+        kw = dict(img_size=(16, 16, 16), patch_size=8, in_channels=1, hidden_size=16,
+                  mlp_dim=32, num_layers=1, num_heads=2, projection_size=8)
+        model = create_ssl_vit(device="cpu", seed=4, **kw)
+        t = SSLTrainer(model, logdir=str(tmp_path), compute_dtype=torch.bfloat16)
+        state = t._init_state()
+        want = create_ssl_vit(device="cpu", seed=4, **kw)
+        assert model.compute_dtype == torch.bfloat16
+        for n, p in want.named_parameters():
+            assert state.params[n].dtype == torch.float32
+            assert torch.equal(state.params[n], p.detach()), n
+            assert torch.equal(dict(model.named_parameters())[n], p.detach().to(torch.bfloat16))

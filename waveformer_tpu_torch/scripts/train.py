@@ -5,8 +5,9 @@
 
 The JAX package's `scripts/train.py` on one CUDA device (or the CPU when
 asked): config, logging, determinism, the persisted train/val split, the
-network from `create_waveformer(cfg.network.model_kwargs(), dtype=...)`,
-then `Trainer.train`. `--device` takes the place of `--platform`; the JAX
+network in fp32 from `create_waveformer(cfg.network.model_kwargs())`, then
+`Trainer.train`, which takes its fp32 masters and then casts the network to
+the config's compute dtype. `--device` takes the place of `--platform`; the JAX
 script's `--multihost` (one process per host over a device mesh) has no
 counterpart here.
 """
@@ -29,11 +30,11 @@ from waveformer_tpu_torch.utils.logger import get_logger, setup_logging_from_con
 
 
 def build_model(cfg: Config, device: Optional[torch.device] = None) -> torch.nn.Module:
-    """The config's network in its compute dtype on `device`, channels-last
-    as the trainer's batches are; the weights come from torch's generator,
-    which `set_determinism(cfg.seed)` seeds."""
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    return create_waveformer(cfg.network.model_kwargs(), dtype=dtype, device=device)
+    """The config's network in fp32 on `device`, channels-last as the
+    trainer's batches are; the weights come from torch's generator, which
+    `set_determinism(cfg.seed)` seeds. The trainer casts it to the config's
+    compute dtype once these fp32 weights are its masters."""
+    return create_waveformer(cfg.network.model_kwargs(), device=device)
 
 
 def build_trainer(cfg: Config, model: torch.nn.Module, resume: bool = True) -> Trainer:
@@ -60,6 +61,7 @@ def build_trainer(cfg: Config, model: torch.nn.Module, resume: bool = True) -> T
         num_classes=cfg.network.out_channels,
         seed=cfg.seed,
         resume=resume,
+        compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
     )
 
 

@@ -6,9 +6,11 @@ gradient clipping, `light_training/trainer.py:451-471`: AdamW lr 1e-4 at
 
 The JAX model keeps fp32 parameters and computes in its compute dtype; its
 optimizer state and updates are fp32. The port's module holds its
-parameters in the compute dtype (`create_waveformer(dtype=torch.bfloat16)`
-casts them; the relative-position tables stay fp32), so the train state
-keeps fp32 **master** parameters and fp32 AdamW moments beside it. A step
+parameters in the compute dtype (`Waveformer.set_compute_dtype` casts them;
+the relative-position tables stay fp32), so the train state keeps fp32
+**master** parameters and fp32 AdamW moments beside it. A module to train
+is built in fp32 and cast by `master_params(model, compute_dtype)` after
+its fp32 weights have become the masters. A step
 runs the module, upcasts its gradients (the VJP of JAX's parameter cast),
 clips them, updates the masters and copies them back into the module. An
 fp32 parameter is its own master and is updated in place.
@@ -110,10 +112,23 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
     torch._foreach_mul_(grads, torch.where(below, one, torch.full_like(norm, max_norm)))
 
 
-def master_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The module's parameters as fp32 masters, by name: an fp32 parameter
-    is its own master, any other gets an fp32 copy."""
-    return {n: p if p.dtype == torch.float32 else p.detach().float()
+def master_params(model: torch.nn.Module,
+                  compute_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The fp32 masters of a module that still holds its fp32 weights, by
+    name; then the module is cast to `compute_dtype` (its
+    `set_compute_dtype`). A parameter that stays fp32 is its own master;
+    any other keeps the fp32 values it had before the cast. So a bf16
+    module's masters are its fp32 weights, as the JAX package's fp32
+    params are, and not their bf16 rounding."""
+    weights = {}
+    for n, p in model.named_parameters():
+        if p.dtype != torch.float32:
+            raise TypeError(f"{n} is {p.dtype}: build the module in fp32 and let "
+                            "the masters be taken before it is cast")
+        # shares the fp32 storage, which the cast below leaves to it
+        weights[n] = p.detach()
+    model.set_compute_dtype(compute_dtype)
+    return {n: p if p.dtype == torch.float32 else weights[n]
             for n, p in model.named_parameters()}
 
 
@@ -184,22 +199,32 @@ def make_train_step(
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None):
-        for p in named.values():
-            p.grad = None
         logits = model(batch["data"], generator=generator)
         loss = loss_fn(logits, batch["seg"])
-        loss.backward()
-        # in the masters' order; a parameter the loss does not reach gets
-        # zeros, as its JAX gradient is
-        grads = [named[n].grad.float() if named[n].grad is not None else torch.zeros_like(m)
-                 for n, m in state.params.items()]
-        for p in named.values():
-            p.grad = None
-        norm = state.apply_gradients(grads)
-        state.copy_to(model)
+        norm = backward_and_update(state, loss, named, model)
         return state, {"loss": loss.detach(), "grad_norm": norm}
 
     return step
+
+
+def backward_and_update(state: TrainState, loss: torch.Tensor,
+                        named: Dict[str, torch.nn.Parameter],
+                        model: torch.nn.Module) -> torch.Tensor:
+    """The backward of `loss` into the module's parameters `named`, their
+    fp32 gradients in the masters' order, one optimizer step on the masters
+    and the masters back into the module. Returns the unclipped global
+    norm as a device scalar."""
+    for p in named.values():
+        p.grad = None
+    loss.backward()
+    # a parameter the loss does not reach gets zeros, as its JAX gradient is
+    grads = [named[n].grad.float() if named[n].grad is not None else torch.zeros_like(m)
+             for n, m in state.params.items()]
+    for p in named.values():
+        p.grad = None
+    norm = state.apply_gradients(grads)
+    state.copy_to(model)
+    return norm
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable:

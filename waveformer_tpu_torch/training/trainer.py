@@ -24,7 +24,9 @@ The JAX trainer's `mesh` (batch sharded over a device mesh's data axis) has
 no meaning on one card and is left out; data parallelism over cards is
 later work. The model is built by the caller (`scripts/train.py` through
 `create_waveformer`) on the device it trains on; its current weights are
-the initial masters.
+the initial masters. The caller builds it in fp32; the trainer casts it to
+`compute_dtype` once those fp32 weights (or a checkpoint that
+`load_params` put there before `train()`) have become the masters.
 
 Subclasses override `training_loss` / `validation_step` /
 `validation_end` like the reference's hooks (`trainer.py:483-493`).
@@ -59,6 +61,15 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
 
 
+def upload(a: np.ndarray, device: torch.device, dtype=np.float32) -> torch.Tensor:
+    """A host array on `device` in `dtype`, through pinned memory and a
+    non-blocking copy on a CUDA device."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 class Trainer:
     """Patch-based segmentation trainer."""
 
@@ -91,8 +102,11 @@ class Trainer:
         # `full_val_cases` whole validation volumes (0 disables)
         full_val_every: int = 0,
         full_val_cases: int = 2,
+        # the dtype the module computes in, from train() on
+        compute_dtype: torch.dtype = torch.float32,
     ):
         self.model = model
+        self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
         self.max_epochs = max_epochs
         self.batch_size = batch_size
@@ -199,7 +213,7 @@ class Trainer:
             self.writer.add_scalar(tag, value, step)
 
     def _init_state(self) -> TrainState:
-        return TrainState.create(master_params(self.model), self.tx)
+        return TrainState.create(master_params(self.model, self.compute_dtype), self.tx)
 
     # ------------------------------------------------------------------ #
     def train(self, train_ds, val_ds) -> float:
@@ -268,15 +282,9 @@ class Trainer:
         return self.best_mean_dice
 
     # ------------------------------------------------------------------ #
-    def _upload(self, a: np.ndarray, dtype) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {"data": self._upload(batch["data"], np.float32),
-                "seg": self._upload(batch["seg"], np.int32)}
+        return {"data": upload(batch["data"], self.device, np.float32),
+                "seg": upload(batch["seg"], self.device, np.int32)}
 
     # How many steps the host may run ahead of the device before it reads a
     # loss back: `.item()` every step would wait for the device and
@@ -427,7 +435,9 @@ class Trainer:
 
     def load_params(self, path: str):
         """Load a params `.npz` (JAX package format) into the module and,
-        when training has started, into the masters."""
+        when training has started, into the masters. Before `train()` the
+        module is still fp32, so the masters it starts from are the
+        checkpoint's arrays."""
         from waveformer_tpu_torch.training.checkpoint import load_params_npz
         from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
 

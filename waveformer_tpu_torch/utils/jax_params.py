@@ -1,4 +1,4 @@
-"""Carry JAX (flax) WaveFormer parameters into the port's `state_dict`.
+"""Carry JAX (flax) WaveFormer and SSLViT parameters into the port's `state_dict`.
 
 The inverse of `waveformer_tpu/utils/torch_port.py::convert_state_dict`,
 written here with numpy alone (the port imports nothing of the JAX
@@ -173,3 +173,89 @@ def state_dict_from_jax(
     up_block(sd, p["decoder1"], "decoder1")
     conv(sd, p["out"]["conv"], "out.conv.conv")
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+# --------------------------------------------------------------------------- #
+# SSLViT (`models/ssl.py`): no reference converter exists, so the port's
+# names follow the flax tree and the two functions below carry weights both
+# ways. Layout rules beyond those above:
+#   attention q/k/v Linear (H·Dh, E)  ← DenseGeneral kernel (E, H, Dh), bias (H, Dh)
+#   attention out Linear (E, H·Dh)    ← DenseGeneral kernel (H, Dh, E)
+#   patch_embed Linear (E, p³·C)      ← space-to-depth Dense kernel (p³·C, E)
+# --------------------------------------------------------------------------- #
+
+_QKV = ("query", "key", "value")
+
+
+def ssl_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax `{"params": ...}` (or the bare tree) of an `SSLViT` → the port's
+    `state_dict` (CPU fp32 tensors)."""
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {}
+    v = p["vit"]
+    dense(sd, v["patch_embed"], "vit.patch_embed")
+    sd["vit.pos_embed"] = _a(v["pos_embed"])
+    i = 0
+    while f"block{i}" in v:
+        jb, pre = v[f"block{i}"], f"vit.block{i}"
+        norm(sd, jb["norm1"], f"{pre}.norm1")
+        norm(sd, jb["norm2"], f"{pre}.norm2")
+        for name in _QKV:
+            kernel = _a(jb["attn"][name]["kernel"])
+            sd[f"{pre}.attn.{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T.copy()
+            sd[f"{pre}.attn.{name}.bias"] = _a(jb["attn"][name]["bias"]).reshape(-1)
+        kernel = _a(jb["attn"]["out"]["kernel"])
+        sd[f"{pre}.attn.out.weight"] = kernel.reshape(-1, kernel.shape[-1]).T.copy()
+        sd[f"{pre}.attn.out.bias"] = _a(jb["attn"]["out"]["bias"])
+        dense(sd, jb["mlp_fc1"], f"{pre}.mlp_fc1")
+        dense(sd, jb["mlp_fc2"], f"{pre}.mlp_fc2")
+        i += 1
+    norm(sd, v["norm"], "vit.norm")
+    dense(sd, p["proj_contrastive"], "proj_contrastive")
+    for name, jp in p.items():
+        if name.startswith("dec_conv") or name == "dec_out":
+            conv(sd, jp, name)
+        elif name.startswith("dec_deconv"):
+            sd[f"{name}.weight"] = _a(jp["kernel"]).transpose(0, 4, 1, 2, 3).copy()
+            sd[f"{name}.bias"] = _a(jp["bias"])
+        elif name == "dec_large":
+            dense(sd, jp, name)
+    return {k: torch.from_numpy(np.array(a)) for k, a in sd.items()}
+
+
+def ssl_params_tree(state_dict: Mapping[str, torch.Tensor], num_heads: int) -> Dict:
+    """The inverse of `ssl_state_dict_from_jax`: an `SSLViT` state dict (or
+    a train state's fp32 masters, by the same names) → the JAX package's
+    `{"params": ...}` tree of numpy fp32 arrays."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        w = t.detach().float().cpu().numpy()
+        *mods, leaf = key.split(".")
+        name = mods[-1]
+        if key == "vit.pos_embed":
+            path, arrays = ["vit"], {"pos_embed": w}
+        elif name in _QKV:
+            e = w.shape[-1] if leaf == "weight" else w.shape[0]
+            shape = (num_heads, e // num_heads)
+            path = mods
+            arrays = ({"kernel": w.T.reshape(e, *shape)} if leaf == "weight"
+                      else {"bias": w.reshape(shape)})
+        elif name == "out" and mods[-2] == "attn":
+            path = mods
+            arrays = ({"kernel": w.T.reshape(num_heads, -1, w.shape[0])}
+                      if leaf == "weight" else {"bias": w})
+        elif name.startswith("norm"):
+            path, arrays = mods, {"scale" if leaf == "weight" else "bias": w}
+        elif name.startswith("dec_conv") or name == "dec_out":
+            path = mods + ["conv"]
+            arrays = {"kernel": w.transpose(2, 3, 4, 1, 0)} if leaf == "weight" else {"bias": w}
+        elif name.startswith("dec_deconv"):
+            path = mods
+            arrays = {"kernel": w.transpose(0, 2, 3, 4, 1)} if leaf == "weight" else {"bias": w}
+        else:  # a Dense
+            path, arrays = mods, {"kernel": w.T} if leaf == "weight" else {"bias": w}
+        node = tree
+        for m in path:
+            node = node.setdefault(m, {})
+        node.update({k: np.ascontiguousarray(a) for k, a in arrays.items()})
+    return {"params": tree}
