@@ -143,6 +143,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 SEED = 0
@@ -255,6 +256,13 @@ SSL_SCRIPT_STEPS = 12
 # 12c's datalist mode: CT-like int16 volumes (X, Y, Z), one of them validates
 SSL_CT_VOLUMES = 3
 SSL_CT_SHAPE = (192, 192, 128)
+# phase 13, data parallelism: 13a's network (the 32³ example at phase 10a's
+# batch, drop path on), 13d's steps; every child process's time limit
+PARALLEL_NET = dict(EXTRA_CONFIGS["example_32"], drop_path_rate=0.2)
+PARALLEL_STEPS = 2
+PARALLEL_SSL_STEPS = 4
+CHILD_TIMEOUT_S = 300
+GROUP_TIMEOUT_S = 60
 
 
 def log(msg):
@@ -633,6 +641,7 @@ def run_serving_path(bench, ac, dc):
 
         model, predictor = bench.setup()
         equal, case_s, save_s, dice_errs, compared = [], [], [], [], 0
+        predictions = {}
         for name in names:
             base = os.path.join(root, "fullres", name)
             with open(base + ".pkl", "rb") as f:
@@ -646,6 +655,7 @@ def run_serving_path(bench, ac, dc):
             save_s.append(time.time() - t0)
             got = nifti.load(os.path.join(root, "predictions", name + ".nii.gz"))
             want = nifti.load(ref_path)
+            predictions[name] = (got.data, got.affine)
             equal.append(got.data.shape == SERVING_RAW_SHAPE
                          and np.array_equal(got.data, want.data)
                          and np.array_equal(got.affine, want.affine)
@@ -681,7 +691,7 @@ def run_serving_path(bench, ac, dc):
            "dice_torch_max_abs_err": max(dice_errs, default=None),
            "dice_classes_compared": compared, "metrics": results.tolist(), "ok": bool(ok)}
     log(json.dumps(row))
-    return ok
+    return ok, predictions
 
 
 def training_config_text(root):
@@ -756,7 +766,7 @@ def check_train_step_vs_cpu(create_waveformer, ac, dc):
            "master_max_abs_err": master_err, "master_max_abs_update": moved,
            "tolerances": TRAIN_STEP_TOL, "launches_by_design": designs, "ok": bool(ok)}
     log(json.dumps(row))
-    return ok
+    return ok, designs
 
 
 def run_flagship_training(ac, dc):
@@ -830,12 +840,14 @@ def run_flagship_training(ac, dc):
     return ok, counts
 
 
-def run_training_script(ac, dc):
+def run_training_script(ac, dc, extra_args=()):
     """Phase 10c: `scripts.train.main` on a temporary tree of 4 synthetic
     preprocessed (4, 150, 180, 145) cases and a YAML config: finite losses,
     best and final params `.npz` written, the final one (and the best one
     where it is of the last epoch) loaded through `state_dict_from_jax`
-    into a fresh model with eval logits `torch.equal` to the trainer's."""
+    into a fresh model with eval logits `torch.equal` to the trainer's.
+    With `extra_args=["--multihost"]` (phase 13c) the step's gradient
+    all-reduces are timed by CUDA events too."""
     from waveformer_tpu_torch import runtime
     from waveformer_tpu_torch.config import load_config
     from waveformer_tpu_torch.scripts import train
@@ -854,7 +866,7 @@ def run_training_script(ac, dc):
         setup_s = time.time() - t0
         zero_counts(ac, dc)
         t0 = time.time()
-        trainer = train.main(["--config", config])
+        trainer = train.main(["--config", config, *extra_args])
         script_s = time.time() - t0
         counts = {"window_attention": ac.launches, "dwconv3": dc.launches}
         designs = {"window_attention": dict(ac.design_launches),
@@ -897,7 +909,8 @@ def run_training_script(ac, dc):
             del fresh
         ok &= len(equal) >= 1 and all(equal.values())
         (n0, s0, w0), (n1, s1, w1) = trainer.epoch_times
-        row = {"check": "training_script", "cases": 4, "case_shape": list(CASE_SHAPE),
+        reducer = trainer._train_step.reducer
+        row = {"check": "training_script", "args": list(extra_args), "cases": 4, "case_shape": list(CASE_SHAPE),
                "setup_s": setup_s, "script_s": script_s, "epochs": 2,
                "steps_per_epoch": TRAIN_STEPS_PER_EPOCH, "workers": 2,
                "first_epoch_steps_per_s": n0 / s0, "warm_steps_per_s": n1 / s1,
@@ -906,6 +919,12 @@ def run_training_script(ac, dc):
                "checkpoints": best + final, "logits_equal": equal,
                "launches": counts, "launches_by_design": designs,
                "runtime_available": runtime.available(), "ok": bool(ok)}
+        if reducer is not None:
+            ms = reducer.device_ms()
+            row.update(mesh=trainer.mesh.shape, backend=torch.distributed.get_backend(),
+                       grad_allreduce_ms=ms, grad_allreduce_ms_median=float(np.median(ms)),
+                       grad_allreduce_bytes=4 * (1 + sum(p.numel() for p in
+                                                         trainer.state.params.values())))
         del trainer
     log(json.dumps(row))
     torch.cuda.empty_cache()
@@ -1364,6 +1383,359 @@ def run_ssl():
     return failed
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: data parallelism over torch.distributed
+# --------------------------------------------------------------------------- #
+
+
+def spawn_ranks(kind, world, workdir, env=None):
+    """`world` child processes of this script (`--child kind rank world
+    workdir`), all on card 0; returns each one's result dict. Each child
+    has CHILD_TIMEOUT_S and its exit code is checked: a rank that fails or
+    hangs fails the phase."""
+    procs = []
+    for r in range(world):
+        child_env = dict(os.environ, **(env or {}), RANK=str(r), WORLD_SIZE=str(world),
+                         LOCAL_RANK="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", kind, str(r), str(world),
+             workdir], env=child_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs, ok = [], True
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=CHILD_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0] + f"\n[killed after {CHILD_TIMEOUT_S} s]")
+    results = []
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():  # the child's result rows
+            if line.startswith('{"check"'):
+                log(line)
+        path = os.path.join(workdir, f"{kind}_rank{r}.pt")
+        if p.returncode != 0 or not os.path.exists(path):
+            ok = False
+            log(f"chip_smoke: {kind} rank {r} exited {p.returncode}:\n{text[-3000:]}")
+            results.append(None)
+        else:
+            results.append(torch.load(path, weights_only=False))
+    return ok, results
+
+
+def child_join(kind, workdir, backend):
+    """A child joins its group over `file://` in `workdir`, on card 0."""
+    from datetime import timedelta
+
+    from waveformer_tpu_torch.parallel.mesh import init_distributed
+
+    return init_distributed("cuda", backend=backend,
+                            init_method=f"file://{os.path.join(workdir, kind + '_rdzv')}",
+                            timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+
+
+def counter_snapshot():
+    from waveformer_tpu_torch.ops import attention_cuda as ac
+    from waveformer_tpu_torch.ops import dwconv_cuda as dc
+
+    return {"window_attention": ac.launches, "dwconv3": dc.launches,
+            "designs": {"window_attention": dict(ac.design_launches),
+                        "dwconv3": dict(dc.design_launches)}}
+
+
+def parallel_batch():
+    """13a's global batch: phase 10a's kind (standard normal data, labels
+    0-3) at batch 2."""
+    rng = np.random.default_rng(SEED)
+    shape = PARALLEL_NET["img_size"]
+    data = rng.standard_normal((2, *shape, PARALLEL_NET["in_chans"])).astype(np.float32)
+    seg = rng.integers(0, 4, (2, *shape, 1)).astype(np.int32)
+    return data, seg
+
+
+def parallel_steps(mesh=None):
+    """PARALLEL_STEPS fp32 train steps of PARALLEL_NET on the card from the
+    seed-0 weights, drop-path masks from `step_seed(SEED, step)`; with a
+    mesh, on this rank's rows. Returns ([(loss, grad norm)], masters on
+    the host, the attention and stencil launches of the steps)."""
+    from waveformer_tpu_torch.models import create_waveformer
+    from waveformer_tpu_torch.parallel.mesh import shard_batch
+    from waveformer_tpu_torch.training.losses import dice_ce_loss
+    from waveformer_tpu_torch.training.state import (
+        TrainState, make_optimizer, make_train_step, master_params)
+    from waveformer_tpu_torch.training.trainer import step_seed
+
+    data, seg = parallel_batch()
+    if mesh is not None:
+        data, seg = shard_batch(mesh, data), shard_batch(mesh, seg)
+    model = create_waveformer(PARALLEL_NET, device="cuda", seed=SEED).train()
+    state = TrainState.create(master_params(model), make_optimizer(lr=1e-4))
+    step = make_train_step(model, dice_ce_loss, mesh)
+    batch = {"data": torch.from_numpy(data).cuda(), "seg": torch.from_numpy(seg).cuda()}
+    gen = torch.Generator(device="cuda")
+    before = counter_snapshot()
+    metrics = []
+    for i in range(PARALLEL_STEPS):
+        gen.manual_seed(step_seed(SEED, i))
+        _, m = step(state, batch, gen)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    after = counter_snapshot()
+    launches = {k: {d: n - before["designs"][k][d] for d, n in after["designs"][k].items()}
+                for k in ("window_attention", "dwconv3")}
+    return metrics, {k: v.detach().cpu() for k, v in state.params.items()}, launches
+
+
+GLOO_PROBE = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_to_all_single", "reduce", "gather", "scatter",
+              "barrier")
+
+
+def gloo_cuda_probe(world):
+    """Which collectives gloo runs on CUDA tensors in this build: each is
+    tried once on both ranks, in the same order; the answer is recorded,
+    not gated."""
+    x = torch.full((world * 2,), float(dist.get_rank() + 1), device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(world * x.numel(), device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device="cuda"), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        "reduce": lambda: dist.reduce(x.clone(), 0),
+        "gather": lambda: dist.gather(x, [torch.empty_like(x) for _ in range(world)]
+                                      if dist.get_rank() == 0 else None, 0),
+        "scatter": lambda: dist.scatter(torch.empty_like(x), [x.clone() for _ in range(world)]
+                                        if dist.get_rank() == 0 else None, 0),
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name in GLOO_PROBE:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def child_dp_steps(rank, world, workdir):
+    """13a, one rank: the data-parallel steps over gloo with CUDA tensors,
+    then the gloo probe."""
+    from waveformer_tpu_torch.ops import _build
+    from waveformer_tpu_torch.parallel.mesh import make_mesh
+
+    _build.LIBRARIES.build_all()
+    child_join("dp", workdir, "gloo")
+    try:
+        mesh = make_mesh()
+        metrics, params, launches = parallel_steps(mesh)
+        out = {"rank": mesh.rank, "mesh": mesh.shape, "metrics": metrics, "params": params,
+               "launches": launches, "backend": dist.get_backend()}
+        out["gloo_cuda"] = gloo_cuda_probe(world)
+        torch.save(out, os.path.join(workdir, f"dp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def child_sharded_predict(rank, world, workdir):
+    """13b, one rank: `scripts.predict --sharded on --tta 8` over gloo."""
+    from waveformer_tpu_torch.ops import _build
+    from waveformer_tpu_torch.scripts import predict
+
+    _build.LIBRARIES.build_all()
+    child_join("predict", workdir, "gloo")
+    try:
+        t0 = time.time()
+        summary = predict.main(["--config", os.path.join(workdir, "config.yaml"), "--tta", "8",
+                                "--sharded", "on"])
+        torch.cuda.synchronize()
+        out = {"summary": summary, "wall_s": time.time() - t0, **counter_snapshot()}
+        torch.save(out, os.path.join(workdir, f"predict_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ssl_trainer_mesh():
+    """13d: `SSLTrainer(mesh=make_mesh())` at the script's ViT-B width, bf16
+    on fp32 masters, batch 2, PARALLEL_SSL_STEPS steps on one resident batch
+    (the views change each step), in the group this process joined: the
+    NT-Xent gather and the gradient all-reduce run under its backend."""
+    from waveformer_tpu_torch.models.ssl import create_ssl_vit
+    from waveformer_tpu_torch.parallel.mesh import make_mesh
+    from waveformer_tpu_torch.training.ssl import SSLTrainer
+
+    cfg = SSL_FULL_CONFIG
+    gt = smooth_volumes((2, *cfg["img_size"], cfg["in_channels"]))
+    model = create_ssl_vit(device="cuda", seed=SEED, **cfg).train()
+    zero_kernel_counts()
+    with tempfile.TemporaryDirectory() as root:
+        trainer = SSLTrainer(model, num_steps=PARALLEL_SSL_STEPS, lr=4e-4, warmup_steps=1,
+                             eval_every=10 * PARALLEL_SSL_STEPS, logdir=root, seed=SEED,
+                             mesh=make_mesh(), compute_dtype=torch.bfloat16)
+        t0 = time.time()
+        trainer.train(iter([gt] * PARALLEL_SSL_STEPS))
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    losses = [float(x) for x in trainer.losses]
+    counts = kernel_counts()
+    ms = trainer.step_fn.reducer.device_ms()
+    ok = (len(losses) == PARALLEL_SSL_STEPS and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0] and not any(counts.values()))
+    row = {"check": "ssl_trainer_mesh", "mesh": trainer.mesh.shape,
+           "backend": dist.get_backend(), "batch": 2, "dtype": "bfloat16",
+           "steps": PARALLEL_SSL_STEPS, "losses": losses, "seconds": seconds,
+           "step_times": trainer.step_times, "grad_allreduce_ms": ms,
+           "kernel_launches": counts, "ok": bool(ok)}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return ok, row
+
+
+def child_multihost(rank, world, workdir):
+    """13c and 13d in one process: `scripts.train --multihost` joins an NCCL
+    group of one from the variables torchrun would set (phase 10c's tree and
+    config), then `SSLTrainer(mesh=...)` in the same group."""
+    from waveformer_tpu_torch.ops import _build
+    from waveformer_tpu_torch.ops import attention_cuda as ac
+    from waveformer_tpu_torch.ops import dwconv_cuda as dc
+
+    _build.LIBRARIES.build_all()
+    try:
+        ok_c, counts = run_training_script(ac, dc, ["--multihost"])
+        ok_d, row_d = run_ssl_trainer_mesh()
+        torch.save({"ok_c": ok_c, "counts": counts, "ok_d": ok_d, "row_d": row_d},
+                   os.path.join(workdir, f"multihost_rank{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+CHILDREN = {"dp": child_dp_steps, "predict": child_sharded_predict,
+            "multihost": child_multihost}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_parallel(served, step_designs):
+    """Phase 13: (a) two ranks on the one card over gloo, the
+    data-parallel train step against the one-process step; (b)
+    `scripts.predict --sharded on` at two ranks over gloo against phase 5b's
+    files; (c) `scripts.train --multihost` and (d) `SSLTrainer(mesh=...)`
+    at world size 1 over NCCL. Returns (failed sub-phases, the attention
+    and stencil launches of the children)."""
+    failed, launches = [], {"window_attention": 0, "dwconv3": 0}
+    t_phase = time.time()
+
+    # 13a
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        ok, ranks = spawn_ranks("dp", 2, root)
+        wall = time.time() - t0
+        want_metrics, want_params, want_launches = parallel_steps()
+    row = {"check": "dp_two_ranks_gloo", "torch": torch.__version__, "ranks": 2,
+           "net": "example_32",
+           "drop_path_rate": PARALLEL_NET["drop_path_rate"], "global_batch": 2,
+           "steps": PARALLEL_STEPS, "wall_s": wall, "tolerances": TRAIN_STEP_TOL}
+    if ok:
+        p0, p1 = ranks[0]["params"], ranks[1]["params"]
+        equal = all(torch.equal(p0[k], p1[k]) for k in p0)
+        master_err = max(float((p0[k] - want_params[k]).abs().max()) for k in p0)
+        loss_rel = max(abs(g[0] - w[0]) / abs(w[0])
+                       for g, w in zip(ranks[0]["metrics"], want_metrics))
+        norm_rel = max(abs(g[1] - w[1]) / w[1] for g, w in zip(ranks[0]["metrics"], want_metrics))
+        # per forward, each rank exactly phase 10a's one forward, per design
+        per_forward = [{k: {d: n / PARALLEL_STEPS for d, n in r["launches"][k].items()}
+                        for k in r["launches"]} for r in ranks]
+        ok = (equal and master_err <= TRAIN_STEP_TOL["master_abs"]
+              and loss_rel <= TRAIN_STEP_TOL["loss_rel"]
+              and norm_rel <= TRAIN_STEP_TOL["grad_norm_rel"]
+              and all(pf == step_designs for pf in per_forward)
+              and per_forward[0] == {k: {d: n / PARALLEL_STEPS for d, n in v.items()}
+                                     for k, v in want_launches.items()}
+              and all(r["backend"] == "gloo" for r in ranks))
+        for r in ranks:
+            for k in launches:
+                launches[k] += sum(r["launches"][k].values())
+        row.update(masters_equal_across_ranks=equal, master_max_abs_err=master_err,
+                   loss_rel_err=loss_rel, grad_norm_rel_err=norm_rel,
+                   metrics=[r["metrics"] for r in ranks], one_process_metrics=want_metrics,
+                   launches_per_forward=per_forward, phase10a_per_forward=step_designs,
+                   gloo_cuda_collectives=ranks[0]["gloo_cuda"])
+    row["ok"] = bool(ok)
+    log(json.dumps(row))
+    if not ok:
+        failed.append("dp_two_ranks_gloo")
+
+    # 13b
+    with tempfile.TemporaryDirectory() as root:
+        _, names = write_serving_tree(root, np.random.default_rng(SEED))
+        t0 = time.time()
+        ok, ranks = spawn_ranks("predict", 2, root)
+        wall = time.time() - t0
+        row = {"check": "sharded_predict_gloo", "ranks": 2, "cases": len(names), "tta": 8,
+               "wall_s": wall}
+        if ok:
+            files = sorted(os.listdir(os.path.join(root, "predictions")))
+            equal = {}
+            from waveformer_tpu_torch.utils import nifti
+
+            for name in names:
+                got = nifti.load(os.path.join(root, "predictions", name + ".nii.gz"))
+                data, affine = served[name]
+                equal[name] = (np.array_equal(got.data, data)
+                               and np.array_equal(got.affine, affine))
+            total = {k: sum(r[k] for r in ranks) for k in ("window_attention", "dwconv3")}
+            designs = {k: {d: sum(r["designs"][k][d] for r in ranks)
+                           for d in ranks[0]["designs"][k]} for k in total}
+            n = len(names)
+            ok = (files == sorted(n_ + ".nii.gz" for n_ in names) and all(equal.values())
+                  and [r["summary"]["cases"] for r in ranks] == [1, 1]
+                  and total == {"window_attention": 112 * n, "dwconv3": 80 * n}
+                  and designs == {"window_attention": {"fma": 0, "tma_wgmma": 112 * n},
+                                  "dwconv3": {"vector": 0, "tma_ring": 80 * n}})
+            for k in launches:
+                launches[k] += total[k]
+            row.update(files=files, equal_to_phase_5b=equal, launches=total,
+                       launches_by_design=designs,
+                       rank_cases=[r["summary"]["cases"] for r in ranks],
+                       rank_script_s=[r["summary"]["seconds"] for r in ranks],
+                       rank_wall_s=[r["wall_s"] for r in ranks],
+                       # one case a rank, both ranks on the one card at once
+                       cases_per_s=n / max(r["summary"]["seconds"] for r in ranks))
+        row["ok"] = bool(ok)
+        log(json.dumps(row))
+        if not ok:
+            failed.append("sharded_predict_gloo")
+
+    # 13c and 13d
+    with tempfile.TemporaryDirectory() as root:
+        ok, (res,) = spawn_ranks("multihost", 1, root, env={
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())})
+        if ok:
+            log(json.dumps(res["row_d"]))
+            for k in launches:
+                launches[k] += res["counts"][k]
+            if not res["ok_c"]:
+                failed.append("train_multihost_nccl")
+            if not res["ok_d"]:
+                failed.append("ssl_trainer_mesh_nccl")
+        else:
+            failed.append("multihost_child")
+    log(json.dumps({"check": "parallel_phase", "seconds": time.time() - t_phase,
+                    "launches": launches, "failed": failed}))
+    return failed, launches
+
+
 def bound(nbytes, t_ops_s):
     """(bound_ms, bound_by): the larger of the bytes at the HBM rate and the
     operations' time at their peak rate."""
@@ -1795,7 +2167,8 @@ def main():
     ok, launches = run_main_path(bench, ac, dc)
     if not ok:
         failed.append("main_path")
-    if not run_serving_path(bench, ac, dc):
+    ok, served = run_serving_path(bench, ac, dc)
+    if not ok:
         failed.append("serving_path")
     ok, conv_rows = check_conv(cc, fc)
     results.update(conv_rows)
@@ -1815,7 +2188,8 @@ def main():
     if not ok:
         failed.append("int8_probe")
     launches.update(probe_launches)
-    if not check_train_step_vs_cpu(create_waveformer, ac, dc):
+    ok, step_designs = check_train_step_vs_cpu(create_waveformer, ac, dc)
+    if not ok:
         failed.append("train_step_card_vs_cpu")
     for phase, fn in (("flagship_training", run_flagship_training),
                       ("training_script", run_training_script),
@@ -1825,10 +2199,14 @@ def main():
             failed.append(phase)
         for name, n in counts.items():
             launches[name] += n
+    failed += run_ssl()
+    parallel_failed, parallel_launches = run_parallel(served, step_designs)
+    failed += parallel_failed
+    for name, n in parallel_launches.items():
+        launches[name] += n
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")
-    failed += run_ssl()
 
     def headline(rows, kname, source, replaces, **extra):
         # the main-path call with the largest bound; a bound set by the
@@ -1894,4 +2272,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:  # one rank of phase 13
+        kind, rank, world, workdir = sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        CHILDREN[kind](rank, world, workdir)
+        sys.exit(0)
     sys.exit(main())

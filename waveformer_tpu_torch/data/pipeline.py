@@ -155,6 +155,7 @@ class PrefetchLoader:
             p.join(timeout=2)
             if p.is_alive():
                 p.terminate()
+                p.join(timeout=5)  # reap it: terminate() only sends the signal
         self._procs = []
         self._queue = None
 

@@ -9,7 +9,9 @@ inferer):
   * argmax on the device, so only the uint8 label map comes back;
   * zero-embedding into the original volume via the preprocessing bbox,
     and the optional largest-connected-component post-process;
-  * NIfTI export in the source geometry (`save_to_nii`).
+  * NIfTI export in the source geometry (`save_to_nii`);
+  * case-parallel inference over the ranks of a data mesh
+    (`predict_cases_sharded`, one process per card).
 
 Geometry rides in the nnUNet-style `properties` dict
 (`shape_before_cropping`, `bbox_used_for_cropping`,
@@ -26,6 +28,8 @@ import torch
 from waveformer_tpu_torch.device import resolve_device
 from waveformer_tpu_torch.inference.sliding_window import SlidingWindowInferer
 from waveformer_tpu_torch.ops.resize import resize_trilinear
+from waveformer_tpu_torch.parallel.collectives import shard_cases_for_eval
+from waveformer_tpu_torch.parallel.mesh import Mesh, make_mesh
 from waveformer_tpu_torch.utils import nifti
 
 
@@ -165,6 +169,36 @@ class Predictor:
             pending = started
         if pending is not None:
             yield self._finish_case(*pending)
+
+    def predict_cases_sharded(
+        self,
+        volumes: Sequence,
+        predictor_fn: Callable,
+        out_channels: int,
+        properties_list: Optional[Sequence[Optional[Dict]]] = None,
+        mesh: Optional[Mesh] = None,
+    ):
+        """Case-parallel full-volume inference over the ranks of `mesh`
+        (default `make_mesh()`), the port of the JAX `predict_cases_sharded`
+        (the reference's eval sharding, `light_training/sampler.py:5-48`).
+
+        Rank r takes row r of `shard_cases_for_eval(len(volumes), W)`,
+        drops the padded repeats, and runs the whole TTA sliding-window
+        case on its own card for each of its cases in ascending order,
+        through `predict_cases` (the cases that need a logit resample
+        included, which JAX runs serially on its controller). Yields
+        `(index, label_map)` for this rank's cases only: the union over the
+        ranks is the serial output, and no label map crosses between
+        ranks. Only the volumes of this rank's cases are read."""
+        mesh = mesh if mesh is not None else make_mesh()
+        n = len(volumes)
+        idx, _ = shard_cases_for_eval(n, mesh.size)
+        per = idx.shape[1]
+        mine = [int(i) for k, i in enumerate(idx[mesh.rank]) if mesh.rank * per + k < n]
+        props = ([properties_list[i] for i in mine] if properties_list is not None else None)
+        segs = self.predict_cases((volumes[i] for i in mine), predictor_fn, out_channels,
+                                  props)
+        yield from zip(mine, segs)
 
     def save_to_nii(
         self,

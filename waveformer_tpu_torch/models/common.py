@@ -85,20 +85,36 @@ class DropPath(nn.Module):
     that the caller seeds (the trainer seeds one from (seed, step), where
     the JAX package folds the step into its dropout key); with none, from
     torch's default generator. The JAX dropout stream itself cannot be
-    reproduced, so parity tests run with rate 0."""
+    reproduced, so parity tests run with rate 0.
+
+    Under data parallelism (`shard_drop_path`) rank r of W holds rows
+    [r·b, (r+1)·b) of a global batch of W·b: it draws the global batch's
+    masks from the same generator and keeps its own rows, so the ranks
+    together drop what one process would drop on the whole batch."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.shard = (0, 1)  # (rank, world size) of the data axis
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        rank, world = self.shard
+        b = x.shape[0]
+        shape = (b * world,) + (1,) * (x.ndim - 1)
         mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
-        return x * mask.to(x.dtype) / keep
+        return x * mask[rank * b:(rank + 1) * b].to(x.dtype) / keep
+
+
+def shard_drop_path(model: nn.Module, rank: int, world: int) -> None:
+    """Give every `DropPath` of `model` its rank's rows of the global
+    batch's masks (see `DropPath`)."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.shard = (rank, world)
 
 
 class ConvCL(nn.Conv3d):

@@ -2,7 +2,7 @@
 
 Port of `waveformer_tpu/models/conv_blocks.py`: `UnetResBlock`,
 `UnetBasicBlock`, `UnetrBasicBlock`, `UnetrUpBlock`, `UnetOutBlock` and the
-reference's `ChannelCalibration`. Channels-last, InstanceNorm without
+reference's `ProjectionHead` and `ChannelCalibration`. Channels-last, InstanceNorm without
 affine (eps 1e-5, fp32 statistics), LeakyReLU 0.01, bias-free convs except
 the 1³ output head. The TPU batch scan (`_scan_over_batch`) has no
 counterpart: PyTorch runs the batch in one call.
@@ -10,7 +10,10 @@ counterpart: PyTorch runs the batch in one call.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -20,6 +23,7 @@ from waveformer_tpu_torch.models.common import (
     instance_norm,
     leaky_relu,
 )
+from waveformer_tpu_torch.parallel.collectives import SyncBatchNorm
 
 
 class UnetResBlock(nn.Module):
@@ -104,6 +108,49 @@ class UnetOutBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
+
+
+class ProjectionHead(nn.Module):
+    """Contrastive projection head (`network_models/network_backbone.py:35-63`).
+
+    `proj='convmlp'` (the reference's default): 1³ conv → BatchNorm + ReLU
+    (`lib/models/tools/module_helper.py:29-34`) → 1³ conv; `proj='linear'`:
+    one 1³ conv. Then L2 over channels with torch's 1e-12 floor
+    (`F.normalize(p=2, dim=1)`), in fp32. Channels-last (B, D, H, W, C),
+    output in the input's dtype. The modules sit where the reference's do,
+    so its state dict keys (`proj.0`, `proj.1.0`, `proj.2`, or `proj`)
+    load as they are. The BatchNorm is `SyncBatchNorm` (fp32, flax's
+    momentum 0.9, as JAX's `nn.BatchNorm` here): plain BatchNorm with no
+    `group`, global-batch moments over the ranks of `group` (what the
+    reference's DDP `convert_sync_batchnorm` makes of it, and what JAX's
+    BatchNorm sees on its global batch). In eval mode it uses the running
+    statistics (JAX's `deterministic=True`)."""
+
+    def __init__(self, dim_in: int, proj_dim: int = 256, proj: str = "convmlp",
+                 group: Optional[dist.ProcessGroup] = None):
+        super().__init__()
+        if proj == "linear":
+            self.proj = ConvCL(dim_in, proj_dim, 1)
+        elif proj == "convmlp":
+            self.proj = nn.Sequential(
+                ConvCL(dim_in, dim_in, 1),
+                nn.Sequential(SyncBatchNorm(dim_in, group), nn.ReLU()),
+                ConvCL(dim_in, proj_dim, 1),
+            )
+        else:
+            raise ValueError(f"Unknown projection type: {proj}")
+        self.kind = proj
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        if self.kind == "linear":
+            h = self.proj(x)
+        else:
+            conv0, (bn, _), conv2 = self.proj
+            h = conv2(F.relu(bn(conv0(x))).to(dtype))
+        h32 = h.float()
+        norm = torch.clamp(torch.linalg.vector_norm(h32, dim=-1, keepdim=True), min=1e-12)
+        return (h32 / norm).to(dtype)
 
 
 class ChannelCalibration(nn.Module):

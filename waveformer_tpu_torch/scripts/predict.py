@@ -2,12 +2,18 @@
 
     python -m waveformer_tpu_torch.scripts.predict --config config.yaml \
         [--checkpoint best_model.npz] [--split test|val] [--tta 1|2|4|8]
-        [--no-tta] [--device cuda|cpu]
+        [--no-tta] [--device cuda|cpu] [--sharded auto|on|off]
+    torchrun --nproc-per-node N -m waveformer_tpu_torch.scripts.predict \
+        --config config.yaml --sharded on
 
 Loads the best params checkpoint (the JAX package's `.npz` format), runs
 mirror-TTA sliding-window inference per case on the CUDA device (or the
 CPU when asked), restores the original geometry and writes
 `{case}.nii.gz` predictions, as `waveformer_tpu/scripts/predict.py` does.
+`--sharded on` (or `auto` with more than one process) shares the cases out
+over the processes of the group `torchrun` describes, one per card
+(`Predictor.predict_cases_sharded`), joining it unless the caller has;
+each process writes only its own cases' files.
 """
 
 from __future__ import annotations
@@ -19,12 +25,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from waveformer_tpu_torch.config import load_config
 from waveformer_tpu_torch.data.dataset import get_train_val_test_loader_from_train
 from waveformer_tpu_torch.device import resolve_device
 from waveformer_tpu_torch.inference import Predictor, SlidingWindowInferer
 from waveformer_tpu_torch.models import create_waveformer
+from waveformer_tpu_torch.parallel.mesh import (
+    init_distributed, main_rank_first, make_mesh, world_size)
 from waveformer_tpu_torch.training.checkpoint import CheckpointManager, load_params_npz
 from waveformer_tpu_torch.utils.determinism import set_determinism
 from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
@@ -32,7 +41,8 @@ from waveformer_tpu_torch.utils.logger import get_logger, setup_logging_from_con
 
 
 def main(argv=None):
-    """Run the script; returns {"cases", "seconds", "cases_per_s"}."""
+    """Run the script; returns {"cases", "seconds", "cases_per_s"} of the
+    cases this process predicted and wrote."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="config.yaml")
@@ -48,19 +58,32 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs "
                     "the kernels' plain versions)")
+    ap.add_argument(
+        "--sharded", choices=("auto", "on", "off"), default="auto",
+        help="share whole cases out over the processes of the group, one "
+        "per card (Predictor.predict_cases_sharded); 'auto' shards when "
+        "there is more than one process",
+    )
     args = ap.parse_args(argv)
+    mesh = None
+    if args.sharded == "on" or (args.sharded == "auto" and world_size() > 1):
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            init_distributed(args.device)
+        mesh = make_mesh()
     device = resolve_device(args.device)
 
     cfg = load_config(args.config)
-    setup_logging_from_config(cfg.logging)
+    if mesh is None or mesh.is_main:
+        setup_logging_from_config(cfg.logging)
     log = get_logger()
     set_determinism(cfg.seed)
 
-    _, val_ds, test_ds = get_train_val_test_loader_from_train(
-        cfg.data_dir,
-        test_list_path=os.path.join(cfg.data_list_path, "test_list.pkl"),
-        split_dir=os.path.join(cfg.data_list_path, cfg.split_path),
-    )
+    with main_rank_first(mesh):
+        _, val_ds, test_ds = get_train_val_test_loader_from_train(
+            cfg.data_dir,
+            test_list_path=os.path.join(cfg.data_list_path, "test_list.pkl"),
+            split_dir=os.path.join(cfg.data_list_path, cfg.split_path),
+        )
     ds = test_ds if args.split == "test" else val_ds
     log.info(f"predicting {len(ds)} {args.split} cases")
 
@@ -106,14 +129,24 @@ def main(argv=None):
     t_start = time.time()
     items = [ds[i] for i in range(len(ds))]
     # preprocessed volumes are already (C, D, H, W): feed them straight in
-    segs = predictor.predict_cases(
-        (np.asarray(it["data"]) for it in items),
-        model,
-        out_channels=cfg.network.out_channels,
-        properties_list=[it["properties"] for it in items],
-    )
+    if mesh is not None:
+        log.info(f"case-sharded inference: rank {mesh.rank} of {mesh.size}")
+        pairs = ((items[i], seg) for i, seg in predictor.predict_cases_sharded(
+            [it["data"] for it in items], model,
+            out_channels=cfg.network.out_channels,
+            properties_list=[it["properties"] for it in items], mesh=mesh))
+    else:
+        segs = predictor.predict_cases(
+            (np.asarray(it["data"]) for it in items),
+            model,
+            out_channels=cfg.network.out_channels,
+            properties_list=[it["properties"] for it in items],
+        )
+        pairs = zip(items, segs)
+    n_done = 0
     t0 = time.time()
-    for item, seg in zip(items, segs):
+    for item, seg in pairs:
+        n_done += 1
         predictor.save_to_nii(
             seg,
             os.path.join(out_dir, item["name"] + ".nii.gz"),
@@ -123,10 +156,12 @@ def main(argv=None):
         log.info(f"{item['name']}: {time.time() - t0:.1f}s")
         t0 = time.time()
     dt = time.time() - t_start
-    n = max(len(ds), 1)
-    log.info(f"done: {len(ds)} cases in {dt:.1f}s ({n / dt:.3f} cases/s)")
-    return {"cases": len(ds), "seconds": dt, "cases_per_s": n / dt}
+    n = max(n_done, 1)
+    log.info(f"done: {n_done} cases in {dt:.1f}s ({n / dt:.3f} cases/s)")
+    return {"cases": n_done, "seconds": dt, "cases_per_s": n / dt}
 
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

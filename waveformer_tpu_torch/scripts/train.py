@@ -2,14 +2,21 @@
 
     python -m waveformer_tpu_torch.scripts.train --config config.yaml \
         [--no-resume] [--plans auto|plans.json] [--device cuda|cpu]
+    torchrun --nproc-per-node N -m waveformer_tpu_torch.scripts.train \
+        --multihost --config config.yaml
 
 The JAX package's `scripts/train.py` on one CUDA device (or the CPU when
 asked): config, logging, determinism, the persisted train/val split, the
 network in fp32 from `create_waveformer(cfg.network.model_kwargs())`, then
 `Trainer.train`, which takes its fp32 masters and then casts the network to
-the config's compute dtype. `--device` takes the place of `--platform`; the JAX
-script's `--multihost` (one process per host over a device mesh) has no
-counterpart here.
+the config's compute dtype. `--device` takes the place of `--platform`.
+`--multihost` (the JAX script calls `jax.distributed.initialize()` there)
+joins the process group `torchrun` describes (`parallel.init_distributed`:
+NCCL on the cards, gloo with `--device cpu`) unless the caller has joined
+one, and trains with `Trainer(mesh=make_mesh())`: one process per card,
+the config's `batch_size` the global batch. Rank 0 writes the persisted
+split and the unpacked cases first, and alone the log file, TensorBoard
+scalars and checkpoints.
 """
 
 from __future__ import annotations
@@ -19,11 +26,13 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from waveformer_tpu_torch.config import Config, load_config
 from waveformer_tpu_torch.data.dataset import get_train_val_test_loader_from_train
 from waveformer_tpu_torch.device import resolve_device
 from waveformer_tpu_torch.models import create_waveformer
+from waveformer_tpu_torch.parallel.mesh import Mesh, init_distributed, main_rank_first, make_mesh
 from waveformer_tpu_torch.training.trainer import Trainer
 from waveformer_tpu_torch.utils.determinism import set_determinism
 from waveformer_tpu_torch.utils.logger import get_logger, setup_logging_from_config
@@ -37,7 +46,8 @@ def build_model(cfg: Config, device: Optional[torch.device] = None) -> torch.nn.
     return create_waveformer(cfg.network.model_kwargs(), device=device)
 
 
-def build_trainer(cfg: Config, model: torch.nn.Module, resume: bool = True) -> Trainer:
+def build_trainer(cfg: Config, model: torch.nn.Module, resume: bool = True,
+                  mesh: Optional[Mesh] = None) -> Trainer:
     """`Trainer` with the config's settings, as the JAX script makes it."""
     return Trainer(
         model,
@@ -54,6 +64,7 @@ def build_trainer(cfg: Config, model: torch.nn.Module, resume: bool = True) -> T
         warmup_epochs=cfg.warmup_epochs,
         logdir=cfg.logdir,
         model_name=cfg.model_name,
+        mesh=mesh,
         num_workers=cfg.train_process,
         full_val_every=cfg.full_val_every,
         full_val_cases=cfg.full_val_cases,
@@ -71,6 +82,9 @@ def main(argv=None) -> Trainer:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="config.yaml")
+    ap.add_argument("--multihost", action="store_true",
+                    help="one process per card in the process group torchrun "
+                    "describes (data parallelism over the cards)")
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs "
@@ -83,10 +97,16 @@ def main(argv=None) -> Trainer:
         "present; default: config values only",
     )
     args = ap.parse_args(argv)
+    mesh = None
+    if args.multihost:
+        if not dist.is_initialized():
+            init_distributed(args.device)
+        mesh = make_mesh()
     device = resolve_device(args.device)
 
     cfg = load_config(args.config)
-    setup_logging_from_config(cfg.logging)
+    if mesh is None or mesh.is_main:
+        setup_logging_from_config(cfg.logging)
     log = get_logger()
     set_determinism(cfg.seed)
 
@@ -101,14 +121,16 @@ def main(argv=None) -> Trainer:
         elif args.plans != "auto":
             ap.error(f"--plans {args.plans}: no usable patch_size")
 
-    train_ds, val_ds, _ = get_train_val_test_loader_from_train(
-        cfg.data_dir,
-        test_list_path=os.path.join(cfg.data_list_path, "test_list.pkl"),
-        split_dir=os.path.join(cfg.data_list_path, cfg.split_path),
-    )
+    with main_rank_first(mesh):
+        train_ds, val_ds, _ = get_train_val_test_loader_from_train(
+            cfg.data_dir,
+            test_list_path=os.path.join(cfg.data_list_path, "test_list.pkl"),
+            split_dir=os.path.join(cfg.data_list_path, cfg.split_path),
+        )
     log.info(f"train {len(train_ds)} / val {len(val_ds)} cases")
 
-    trainer = build_trainer(cfg, build_model(cfg, device), resume=not args.no_resume)
+    trainer = build_trainer(cfg, build_model(cfg, device), resume=not args.no_resume,
+                            mesh=mesh)
     best = trainer.train(train_ds, val_ds)
     log.info(f"training done; best mean dice {best:.4f}")
     return trainer
@@ -116,3 +138,5 @@ def main(argv=None) -> Trainer:
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -10,9 +10,15 @@ Port of `waveformer_tpu/training/losses.py`, function for function:
 
 All functions take logits `(B, *spatial, K)` channels-last and integer
 labels `(B, *spatial, 1)` (or one-hot targets where stated); reductions run
-in fp32 whatever the logits' dtype. The JAX functions' `axis_name` (a psum
-of the batch-dice statistics over the mesh's data axis) has no counterpart
-on one card and is left out.
+in fp32 whatever the logits' dtype. Where JAX takes `axis_name` (a psum of
+the batch-dice statistics over the mesh's data axis), the port takes
+`group`, a `torch.distributed` process group: with `batch_dice` the
+statistics are summed over the ranks of `group` by a differentiable
+all-reduce (`parallel.collectives.cross_replica_sum`), the global batch
+dice of nnUNet's DDP `SoftDiceLoss` (`light_training/loss/dice.py:36-48`).
+Every rank then holds the same dice term, and the data-parallel step's
+mean over ranks of the gradients is that term's gradient (see
+`parallel/collectives.py`).
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from waveformer_tpu_torch.parallel.collectives import cross_replica_sum
 
 
 def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -52,12 +61,13 @@ def soft_dice_loss(
     smooth_nr: float = 1e-5,
     smooth_dr: float = 1e-5,
     batch_dice: bool = False,
+    group: Optional[dist.ProcessGroup] = None,
     apply_softmax: bool = True,
 ) -> torch.Tensor:
     """MONAI `DiceLoss(softmax=True, to_onehot_y=True)` semantics
     (`monai/losses/dice.py:30-200`): per-(sample, class) dice over spatial
     dims, mean-reduced; with `batch_dice` the statistics are summed over
-    the batch first."""
+    the batch first, and over the ranks of `group` if one is given."""
     num_classes = logits.shape[-1]
     probs = F.softmax(logits.float(), dim=-1) if apply_softmax else logits.float()
     onehot = _one_hot(labels, num_classes)
@@ -75,6 +85,9 @@ def soft_dice_loss(
         intersection = torch.sum(intersection, dim=0, keepdim=True)
         pred_sum = torch.sum(pred_sum, dim=0, keepdim=True)
         gt_sum = torch.sum(gt_sum, dim=0, keepdim=True)
+        if group is not None:
+            intersection, pred_sum, gt_sum = cross_replica_sum(
+                torch.stack([intersection, pred_sum, gt_sum]), group)
 
     if not include_background:
         intersection = intersection[:, 1:]
@@ -92,10 +105,12 @@ def dice_ce_loss(
     lambda_ce: float = 1.0,
     include_background: bool = True,
     batch_dice: bool = False,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> torch.Tensor:
-    """MONAI `DiceCELoss(to_onehot_y=True, softmax=True)` (`dice.py:639`)."""
+    """MONAI `DiceCELoss(to_onehot_y=True, softmax=True)` (`dice.py:639`);
+    the CE term is this rank's mean."""
     d = soft_dice_loss(logits, labels, include_background=include_background,
-                       batch_dice=batch_dice)
+                       batch_dice=batch_dice, group=group)
     c = softmax_cross_entropy(logits, labels)
     return lambda_dice * d + lambda_ce * c
 
@@ -104,9 +119,10 @@ class DiceCELoss:
     """Callable config wrapper mirroring the reference's loss object."""
 
     def __init__(self, lambda_dice=1.0, lambda_ce=1.0, include_background=True,
-                 batch_dice=False):
+                 batch_dice=False, group=None):
         self.kwargs = dict(lambda_dice=lambda_dice, lambda_ce=lambda_ce,
-                           include_background=include_background, batch_dice=batch_dice)
+                           include_background=include_background, batch_dice=batch_dice,
+                           group=group)
 
     def __call__(self, logits, labels):
         return dice_ce_loss(logits, labels, **self.kwargs)
@@ -120,6 +136,7 @@ def dice_bce_loss(
     use_ignore_label: bool = False,
     batch_dice: bool = True,
     smooth: float = 1e-5,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> torch.Tensor:
     """Region-based sigmoid DC+BCE (reference `DC_and_BCE_loss`,
     `light_training/loss/compound_losses.py:60-100` with
@@ -128,7 +145,9 @@ def dice_bce_loss(
     `region_targets` is one-hot over overlapping regions, channels-last
     (B, *spatial, K); with `use_ignore_label` the last channel marks voxels
     to exclude. The dice term is `-mean(dice)`, so the loss can be
-    negative; `batch_dice` sums the statistics over the batch."""
+    negative; `batch_dice` sums the statistics over the batch, and over
+    the ranks of `group` if one is given (the BCE term is this rank's
+    mean)."""
     x = logits.float()
     t = region_targets.float()
     mask = None
@@ -157,6 +176,9 @@ def dice_bce_loss(
         intersect = torch.sum(intersect, dim=0)
         sum_pred = torch.sum(sum_pred, dim=0)
         sum_gt = torch.sum(sum_gt, dim=0)
+        if group is not None:
+            intersect, sum_pred, sum_gt = cross_replica_sum(
+                torch.stack([intersect, sum_pred, sum_gt]), group)
     dc = (2.0 * intersect + smooth) / torch.clamp(sum_gt + sum_pred + smooth, min=1e-8)
     return weight_ce * ce - weight_dice * torch.mean(dc)
 

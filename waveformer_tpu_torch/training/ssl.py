@@ -18,8 +18,12 @@ Port of `waveformer_tpu/training/ssl.py` (the reference SSL stack,
     the backward, and AdamW without clipping on fp32 masters
     (`training/state.py`).
 
-The JAX trainer's `mesh` (the batch sharded over a device mesh's data axis)
-has no meaning on one card and is left out, as in `Trainer`.
+With a `mesh` (`parallel/mesh.py`, one process per card), where the JAX
+trainer shards the batch over its mesh's data axis, each rank runs its own
+rows of the global batch: NT-Xent takes its negatives from the global 2B
+embeddings, gathered with `all_gather_with_grad`, the recon L1 is the
+global mean, so `total` is the same scalar on every rank, and the
+gradients are averaged over the ranks before AdamW (`GradientReducer`).
 """
 
 from __future__ import annotations
@@ -30,10 +34,14 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from waveformer_tpu_torch.parallel.collectives import all_gather_with_grad, cross_replica_mean
+from waveformer_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from waveformer_tpu_torch.training.checkpoint import CheckpointManager
 from waveformer_tpu_torch.training.schedules import warmup_cosine_schedule
 from waveformer_tpu_torch.training.state import (
+    GradientReducer,
     TrainState,
     backward_and_update,
     make_optimizer,
@@ -49,8 +57,13 @@ from waveformer_tpu_torch.utils.logger import SummaryWriter, get_logger
 # --------------------------------------------------------------------------- #
 
 
-def nt_xent(z_i: torch.Tensor, z_j: torch.Tensor, temperature: float = 0.5) -> torch.Tensor:
-    """SimCLR NT-Xent over 2B embeddings (`loss.py:6-61` semantics)."""
+def nt_xent(z_i: torch.Tensor, z_j: torch.Tensor, temperature: float = 0.5,
+            group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """SimCLR NT-Xent over 2B embeddings (`loss.py:6-61` semantics); with
+    `group`, over the 2B embeddings of the global batch, every rank's rows
+    gathered in rank order."""
+    if group is not None:
+        z_i, z_j = (all_gather_with_grad(z, group).flatten(0, 1) for z in (z_i, z_j))
     b = z_i.shape[0]
     z_i = z_i / (torch.linalg.vector_norm(z_i, dim=1, keepdim=True) + 1e-8)
     z_j = z_j / (torch.linalg.vector_norm(z_j, dim=1, keepdim=True) + 1e-8)
@@ -65,10 +78,14 @@ def nt_xent(z_i: torch.Tensor, z_j: torch.Tensor, temperature: float = 0.5) -> t
 def ssl_total_loss(
     c1, c2, rec1, rec2, gt1, gt2, temperature: float = 0.5,
     alpha_contrast: float = 1.0, alpha_recon: float = 1.0,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """total = α_c · contrast · recon + α_r · recon (`loss.py:102`)."""
-    contrast = nt_xent(c1, c2, temperature)
+    """total = α_c · contrast · recon + α_r · recon (`loss.py:102`); with
+    `group`, of the global batch (each rank the same number of rows)."""
+    contrast = nt_xent(c1, c2, temperature, group)
     rec = 0.5 * (torch.mean(torch.abs(rec1 - gt1)) + torch.mean(torch.abs(rec2 - gt2)))
+    if group is not None:
+        rec = cross_replica_mean(rec, group)
     total = alpha_contrast * contrast * rec + alpha_recon * rec
     return total, {"contrast": contrast, "recon": rec}
 
@@ -189,22 +206,28 @@ def make_two_views(
 # --------------------------------------------------------------------------- #
 
 
-def make_ssl_step(model: torch.nn.Module, temperature: float = 0.5):
+def make_ssl_step(model: torch.nn.Module, temperature: float = 0.5,
+                  mesh: Optional[Mesh] = None):
     """`step(state, v1, v2, gt) -> (state, metrics)`: the module on both
     views, `ssl_total_loss` against `gt` for both, the backward, fp32 gradients,
     the optimizer step on the masters and the masters back into the
     module. `metrics` holds device scalars: the loss, its contrast and
-    recon parts, and the unclipped gradient norm."""
+    recon parts, and the unclipped gradient norm. With a mesh that has a
+    group, v1, v2 and gt are this rank's rows of the global batch and the
+    loss is the global batch's (see the module's docstring)."""
     named = dict(model.named_parameters())
+    group = mesh.group if mesh is not None else None
+    reducer = GradientReducer(mesh) if group is not None else None
 
     def step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor, gt: torch.Tensor):
         c1, r1 = model(v1)
         c2, r2 = model(v2)
-        total, parts = ssl_total_loss(c1, c2, r1, r2, gt, gt, temperature)
-        norm = backward_and_update(state, total, named, model)
-        return state, {"loss": total.detach(), "contrast": parts["contrast"].detach(),
+        total, parts = ssl_total_loss(c1, c2, r1, r2, gt, gt, temperature, group=group)
+        norm, loss = backward_and_update(state, total, named, model, reducer)
+        return state, {"loss": loss, "contrast": parts["contrast"].detach(),
                        "recon": parts["recon"].detach(), "grad_norm": norm}
 
+    step.reducer = reducer
     return step
 
 
@@ -215,7 +238,14 @@ class SSLTrainer:
     trains on; the trainer casts it to `compute_dtype` once its fp32
     weights have become the masters (`master_params`). The JAX trainer's
     dropout key is left out with the model's dropout (rate 0 in the
-    script), and its `batch_size` with its mesh."""
+    script).
+
+    With a `mesh`, the batch iterator yields the global batch on every
+    rank; every rank makes the same two views of it (one host generator
+    seeded alike) and trains on its own rows. The masters are broadcast
+    from rank 0 at the start; validation runs on every rank alike; rank 0
+    alone writes TensorBoard scalars and checkpoints. The ranks must divide
+    the global batch (`shard_batch` raises otherwise)."""
 
     def __init__(
         self,
@@ -227,11 +257,14 @@ class SSLTrainer:
         eval_every: int = 100,
         temperature: float = 0.5,
         logdir: str = "./logs_ssl",
+        mesh: Optional[Mesh] = None,
         seed: int = 42,
         # the dtype the module computes in, from train() on
         compute_dtype: torch.dtype = torch.float32,
     ):
         self.model = model
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.device = next(model.parameters()).device
         self.num_steps = num_steps
         self.eval_every = eval_every
@@ -243,14 +276,20 @@ class SSLTrainer:
         self.schedule = warmup_cosine_schedule(lr, warmup_steps, num_steps)
         self.tx = make_optimizer(lr=self.schedule, weight_decay=weight_decay,
                                  grad_clip_norm=None)
-        self.ckpt = CheckpointManager(os.path.join(logdir, "model"))
+        self.ckpt = CheckpointManager(os.path.join(logdir, "model")) if self.is_main else None
         self.best_val = np.inf
         # per step: (host seconds from its start to the next batch in hand,
         # of which waiting on the batch iterator)
         self.step_times: List[Tuple[float, float]] = []
+        # per step: the (global) loss as a device scalar, read without a sync
+        self.losses: List[torch.Tensor] = []
 
     def _init_state(self) -> TrainState:
-        return TrainState.create(master_params(self.model, self.compute_dtype), self.tx)
+        state = TrainState.create(master_params(self.model, self.compute_dtype), self.tx)
+        if self.mesh is not None:
+            replicate(self.mesh, list(state.params.values()))
+            state.copy_to(self.model)
+        return state
 
     def params_tree(self) -> Dict:
         """The masters as the JAX package's `SSLViT` params tree."""
@@ -263,19 +302,22 @@ class SSLTrainer:
     ) -> float:
         """`batch_iterator` yields (B, D, H, W, C) volumes (channels-last);
         returns the best validation L1 reconstruction."""
-        writer = SummaryWriter(self.logdir)
+        writer = SummaryWriter(self.logdir) if self.is_main else None
         rng_np = np.random.RandomState(self.seed)
         it = iter(batch_iterator)
         first = next(it)
         self.state = self._init_state()
-        step_fn = make_ssl_step(self.model, self.temperature)
+        step_fn = self.step_fn = make_ssl_step(self.model, self.temperature, self.mesh)
         n_params = sum(int(p.numel()) for p in self.state.params.values())
         self.log.info(f"SSL model: {n_params:,} params")
+
+        def rows(a):
+            return a if self.mesh is None else shard_batch(self.mesh, a)
 
         def views(gt):
             cdhw = gt.transpose(0, 4, 1, 2, 3)
             v1, v2 = make_two_views(cdhw, rng_np)
-            return (upload(v.transpose(0, 2, 3, 4, 1), self.device) for v in (v1, v2))
+            return (upload(rows(v.transpose(0, 2, 3, 4, 1)), self.device) for v in (v1, v2))
 
         gt = first
         self.model.train()
@@ -283,8 +325,9 @@ class SSLTrainer:
             for step_i in range(self.num_steps):
                 t0 = time.perf_counter()
                 v1, v2 = views(gt)
-                _, metrics = step_fn(self.state, v1, v2, upload(gt, self.device))
-                if step_i % 10 == 0:
+                _, metrics = step_fn(self.state, v1, v2, upload(rows(gt), self.device))
+                self.losses.append(metrics["loss"])
+                if step_i % 10 == 0 and writer is not None:
                     scalars = {k: float(metrics[k]) for k in ("loss", "contrast", "recon")}
                     writer.add_scalars(scalars, step_i)
                     self.log.info(
@@ -294,10 +337,12 @@ class SSLTrainer:
                     )
                 if val_batches and (step_i + 1) % self.eval_every == 0:
                     val = self._validate(val_batches)
-                    writer.add_scalar("val_recon_l1", val, step_i)
+                    if writer is not None:
+                        writer.add_scalar("val_recon_l1", val, step_i)
                     if val < self.best_val:
                         self.best_val = val
-                        self.ckpt.save_best(self.params_tree(), -val, step_i, "ssl_vit")
+                        if self.ckpt is not None:
+                            self.ckpt.save_best(self.params_tree(), -val, step_i, "ssl_vit")
                 t1 = time.perf_counter()
                 gt = next(it, None)
                 t2 = time.perf_counter()
@@ -306,8 +351,11 @@ class SSLTrainer:
                     break
         finally:
             self.model.eval()
-        self.ckpt.save_final(self.params_tree(), 0.0, self.num_steps, "ssl_vit")
-        writer.close()
+        if self.ckpt is not None:
+            self.ckpt.save_final(self.params_tree(), 0.0, self.num_steps, "ssl_vit")
+            writer.close()
+        if self.mesh is not None:
+            self.mesh.barrier()
         return self.best_val
 
     def _validate(self, val_batches) -> float:

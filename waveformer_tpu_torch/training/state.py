@@ -26,16 +26,29 @@ every parameter decays (optax's `adamw` with no mask). The updates are
 `torch._foreach_*` calls over all masters, no host synchronisation; the
 learning rate of step `t` is `schedule(t)`, the count before the step, as
 optax reads it.
+
+With a `mesh` (`parallel/mesh.py`, one process per card) the step is
+JAX's global-batch step under `make_train_step(mesh=...)`: each rank runs
+the forward on its own rows, and its fp32 gradients (not the compute-dtype
+module's) go into one flat buffer with its loss, which one all-reduce
+averages over the ranks (`GradientReducer`); then every rank clips by the
+global norm and updates its masters alike. The loss is then the mean over
+the global batch, and drop-path masks are the global batch's rows
+(`models.common.shard_drop_path`).
 """
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from waveformer_tpu_torch.models.common import shard_drop_path
+from waveformer_tpu_torch.parallel.mesh import Mesh
 from waveformer_tpu_torch.training.schedules import Schedule, constant_schedule
 
 
@@ -186,34 +199,81 @@ class TrainState:
                     p.copy_(m)
 
 
+class GradientReducer:
+    """The mean over the ranks of a mesh of every fp32 gradient and the
+    loss, in one flat buffer and one all-reduce. Every rank passes the
+    same tensors in the same order (a parameter the loss does not reach
+    has a zero gradient, never a missing one). On the card the last 64
+    all-reduces are bracketed by CUDA events (`device_ms`)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.events: collections.deque = collections.deque(maxlen=64)
+
+    def __call__(self, grads: List[torch.Tensor],
+                 loss: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """(the averaged gradients, views of one buffer; the averaged loss)."""
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().float().reshape(1)])
+        timed = flat.is_cuda
+        if timed:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        dist.all_reduce(flat, group=self.mesh.group)
+        if timed:
+            end.record()
+            self.events.append((start, end))
+        flat.div_(self.mesh.size)
+        parts = torch.split(flat[:-1], [g.numel() for g in grads])
+        return [p.view_as(g) for p, g in zip(parts, grads)], flat[-1]
+
+    def device_ms(self) -> List[float]:
+        """Device ms of each kept all-reduce (waits for the device)."""
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
 def make_train_step(
     model: torch.nn.Module,
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """`step(state, batch, generator=None) -> (state, metrics)`: forward in
     the module's dtype (`generator` draws its drop-path masks), loss,
     backward, fp32 gradients, clip, AdamW on the masters, masters back into
     the module. `metrics` holds device scalars: the loss and the unclipped
-    gradient norm."""
+    gradient norm.
+
+    With a mesh that has a group, `batch` is this rank's rows of the
+    global batch, every rank seeds `generator` alike, and the gradients
+    and the loss are averaged over the ranks before the clip (the step's
+    `reducer`); the module's drop paths draw the global batch's masks."""
     named = dict(model.named_parameters())
+    reducer = None
+    if mesh is not None and mesh.group is not None:
+        reducer = GradientReducer(mesh)
+        shard_drop_path(model, mesh.rank, mesh.size)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None):
         logits = model(batch["data"], generator=generator)
         loss = loss_fn(logits, batch["seg"])
-        norm = backward_and_update(state, loss, named, model)
-        return state, {"loss": loss.detach(), "grad_norm": norm}
+        norm, loss = backward_and_update(state, loss, named, model, reducer)
+        return state, {"loss": loss, "grad_norm": norm}
 
+    step.reducer = reducer
     return step
 
 
 def backward_and_update(state: TrainState, loss: torch.Tensor,
                         named: Dict[str, torch.nn.Parameter],
-                        model: torch.nn.Module) -> torch.Tensor:
+                        model: torch.nn.Module,
+                        reducer: Optional[GradientReducer] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of `loss` into the module's parameters `named`, their
-    fp32 gradients in the masters' order, one optimizer step on the masters
-    and the masters back into the module. Returns the unclipped global
-    norm as a device scalar."""
+    fp32 gradients in the masters' order (averaged over the ranks by
+    `reducer`, with the loss), one optimizer step on the masters and the
+    masters back into the module. Returns the unclipped global norm and
+    the (averaged) loss, detached, as device scalars."""
     for p in named.values():
         p.grad = None
     loss.backward()
@@ -222,9 +282,12 @@ def backward_and_update(state: TrainState, loss: torch.Tensor,
              for n, m in state.params.items()]
     for p in named.values():
         p.grad = None
+    loss = loss.detach()
+    if reducer is not None:
+        grads, loss = reducer(grads, loss)
     norm = state.apply_gradients(grads)
     state.copy_to(model)
-    return norm
+    return norm, loss
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable:

@@ -2,7 +2,7 @@
 
 Port of `waveformer_tpu/training/trainer.py` (reference
 `light_training/trainer.py:25-516`, `class Trainer`), with the same
-constructor arguments (but `mesh`) and hooks:
+constructor arguments and hooks:
 
   * the epoch structure of the reference: `num_steps_per_epoch` steps,
     validation every `val_every` epochs on `val_patches_per_epoch` patches,
@@ -20,9 +20,16 @@ constructor arguments (but `mesh`) and hooks:
   * drop-path masks from a generator on the device, seeded from
     (seed, global_step) where the JAX trainer folds the step into its key.
 
-The JAX trainer's `mesh` (batch sharded over a device mesh's data axis) has
-no meaning on one card and is left out; data parallelism over cards is
-later work. The model is built by the caller (`scripts/train.py` through
+With a `mesh` (`parallel/mesh.py`), where the JAX trainer shards the
+batch over a device mesh's data axis, the trainer is one process of a data
+group, one per card (the reference's DDP): `batch_size` is the global
+batch, of which each rank's `PrefetchLoader` draws its share from its own
+seed (seed + rank); the step averages the fp32 gradients over the ranks
+(`make_train_step(mesh=...)`); the masters are broadcast from rank 0 at
+the start and after a resume; the validation patches are split over the
+ranks and their dice rows gathered (`gather_metrics`); rank 0 alone
+writes logs, TensorBoard scalars and checkpoints, and every rank waits
+for the others before `train()` returns. The model is built by the caller (`scripts/train.py` through
 `create_waveformer`) on the device it trains on; its current weights are
 the initial masters. The caller builds it in fp32; the trainer casts it to
 `compute_dtype` once those fp32 weights (or a checkpoint that
@@ -42,6 +49,8 @@ import numpy as np
 import torch
 
 from waveformer_tpu_torch.data.pipeline import PrefetchLoader
+from waveformer_tpu_torch.parallel.collectives import gather_metrics
+from waveformer_tpu_torch.parallel.mesh import Mesh, replicate
 from waveformer_tpu_torch.training.checkpoint import CheckpointManager, params_tree
 from waveformer_tpu_torch.training.losses import dice_ce_loss
 from waveformer_tpu_torch.training.schedules import make_schedule
@@ -89,6 +98,7 @@ class Trainer:
         warmup_epochs: float = 0.0,
         logdir: str = "./logs",
         model_name: str = "waveformer",
+        mesh: Optional[Mesh] = None,
         num_workers: int = 12,
         cache_size: int = 6,
         # "train_fast": the nnUNet stack with the native OpenMP order-1
@@ -108,6 +118,11 @@ class Trainer:
         self.model = model
         self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"global batch {batch_size} does not split over "
+                             f"{mesh.size} processes")
         self.max_epochs = max_epochs
         self.batch_size = batch_size
         self.val_every = val_every
@@ -135,7 +150,7 @@ class Trainer:
         self.epoch = 0
         self.best_mean_dice = 0.0
         self.writer: Optional[SummaryWriter] = None
-        self.ckpt = CheckpointManager(os.path.join(logdir, "model"))
+        self.ckpt = CheckpointManager(os.path.join(logdir, "model")) if self.is_main else None
         self._train_step = None
         self._eval_step = make_eval_step(model)
         self._generator = torch.Generator(device=self.device)
@@ -198,9 +213,13 @@ class Trainer:
         for n, v in zip(names, mean_dice_per_class):
             self.log_scalar(f"{n}_dice", float(v), self.epoch)
         self.log_scalar("mean_dice", mean_dice, self.epoch)
-        params = params_tree(self.state.params, *self._layout())
-        if mean_dice > self.best_mean_dice:
+        improved = mean_dice > self.best_mean_dice
+        if improved:
             self.best_mean_dice = mean_dice
+        if self.ckpt is None:  # not rank 0: it writes nothing
+            return
+        params = params_tree(self.state.params, *self._layout())
+        if improved:
             self.ckpt.save_best(params, mean_dice, self.epoch, self.model_name)
             self.log.info(f"epoch {self.epoch}: new best mean dice {mean_dice:.4f}")
         self.ckpt.save_final(params, mean_dice, self.epoch, self.model_name)
@@ -215,46 +234,70 @@ class Trainer:
     def _init_state(self) -> TrainState:
         return TrainState.create(master_params(self.model, self.compute_dtype), self.tx)
 
+    def _resume_epoch(self) -> int:
+        """The epoch of the latest periodic state, which rank 0 loads into
+        the state, or -1 where there is none; the same on every rank."""
+        epoch = -1
+        if self.resume and self.ckpt is not None and self.ckpt.latest_checkpoint() is not None:
+            path, epoch = self.ckpt.latest_checkpoint()
+            self.state = self.ckpt.load_state(self.state, path)
+            self.state.copy_to(self.model)
+            self.log.info(f"resumed from {path} at epoch {epoch + 1}")
+        if self.mesh is not None:
+            e = torch.tensor([epoch], device=self.mesh.device)
+            epoch = int(replicate(self.mesh, [e])[0])
+        return epoch
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's masters, moments and step count on every rank, and the
+        masters in the module."""
+        mu, nu = self.state.moments()
+        replicate(self.mesh, [*self.state.params.values(), *mu.values(), *nu.values()])
+        step = torch.tensor([self.state.step], device=self.mesh.device)
+        self.state.opt_state.count = self.state.step = int(replicate(self.mesh, [step])[0])
+        self.state.copy_to(self.model)
+
     # ------------------------------------------------------------------ #
     def train(self, train_ds, val_ds) -> float:
         """Run the full loop; returns best mean dice."""
-        self.writer = SummaryWriter(self.logdir)
+        self.writer = SummaryWriter(self.logdir) if self.is_main else None
+        # each rank draws its share of the global batch from its own seed
+        rank, world = (0, 1) if self.mesh is None else (self.mesh.rank, self.mesh.size)
+        local_batch = self.batch_size // world
         train_loader = PrefetchLoader(
             train_ds,
             steps_per_epoch=self.num_steps_per_epoch,
             patch_size=self.patch_size,
-            batch_size=self.batch_size,
+            batch_size=local_batch,
             transform=self.augmentation,
             num_workers=self.num_workers,
             cache_size=self.cache_size,
-            seed=self.seed,
+            seed=self.seed + rank,
         )
         n_val_batches = max(1, self.val_patches_per_epoch // self.batch_size)
         val_loader = PrefetchLoader(
             val_ds,
             steps_per_epoch=n_val_batches,
             patch_size=self.patch_size,
-            batch_size=self.batch_size,
+            batch_size=local_batch,
             transform="val",
             num_workers=0,
-            seed=self.seed + 1,
+            seed=self.seed + 1 + rank,
         )
 
         self.state = self._init_state()
         n_params = sum(int(p.numel()) for p in self.state.params.values())
-        self.log.info(f"model {self.model_name}: {n_params:,} params; device {self.device}")
+        self.log.info(f"model {self.model_name}: {n_params:,} params; device {self.device}"
+                      + ("" if self.mesh is None else f"; mesh {self.mesh.shape}"))
 
-        start_epoch = 0
-        if self.resume and self.ckpt.latest_checkpoint() is not None:
-            path, epoch = self.ckpt.latest_checkpoint()
-            self.state = self.ckpt.load_state(self.state, path)
-            self.state.copy_to(self.model)
-            start_epoch = epoch + 1
-            self.global_step = self.state.step
-            self.log.info(f"resumed from {path} at epoch {start_epoch}")
+        start_epoch = self._resume_epoch() + 1
+        if self.mesh is not None:
+            self._broadcast_state()
+        self.global_step = self.state.step
 
         self._train_step = make_train_step(
-            self.model, lambda logits, seg: self.training_loss(logits, {"seg": seg}))
+            self.model, lambda logits, seg: self.training_loss(logits, {"seg": seg}),
+            mesh=self.mesh)
 
         try:
             for self.epoch in range(start_epoch, self.max_epochs):
@@ -279,6 +322,8 @@ class Trainer:
             train_loader.shutdown()
             if self.writer is not None:
                 self.writer.close()
+        if self.mesh is not None:
+            self.mesh.barrier()
         return self.best_mean_dice
 
     # ------------------------------------------------------------------ #
@@ -328,6 +373,9 @@ class Trainer:
             b = self._device_batch(batch)
             per_patch.append(self.validation_step(self.state.params, b))
         all_vals = np.concatenate(per_patch, axis=0)  # (N, K) with NaNs
+        if self.mesh is not None and self.mesh.group is not None:
+            rows = torch.from_numpy(all_vals).to(self.mesh.device)
+            all_vals = gather_metrics(rows, self.mesh.group).cpu().numpy()
         # reference semantics: mean over non-NaN patches per class; a class
         # absent from every patch scores 0 (`light_training/trainer.py:240-269`)
         counts = np.sum(~np.isnan(all_vals), axis=0)
@@ -415,6 +463,11 @@ class Trainer:
         ``predict_case(item) -> float | sequence`` is the model-define
         hook; omitted, it is sliding-window inference with the module's
         current weights + per-class dice against the stored segmentation."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise RuntimeError(
+                "validation_single_gpu is single-process by contract "
+                "(reference refuses under DDP, trainer.py:217-219); use "
+                "sharded inference instead")
         if predict_case is None:
             def predict_case(item):
                 pred = self._predict_volume(item["data"])

@@ -175,6 +175,28 @@ def state_dict_from_jax(
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
+def projection_head_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax variables `{"params": ..., "batch_stats": ...}` of a JAX
+    `ProjectionHead` → the port's `ProjectionHead` state dict (the
+    reference's keys; the inverse of `torch_port.convert_projection_head`).
+    `num_batches_tracked`, which the flax tree does not hold, is 0."""
+    p = variables["params"]
+    sd: StateDict = {}
+    if "proj" in p:  # linear variant
+        conv(sd, p["proj"], "proj")
+    else:
+        conv(sd, p["proj0"], "proj.0")
+        norm(sd, p["bn"], "proj.1.0")
+        stats = variables["batch_stats"]["bn"]
+        sd["proj.1.0.running_mean"] = _a(stats["mean"])
+        sd["proj.1.0.running_var"] = _a(stats["var"])
+        conv(sd, p["proj2"], "proj.2")
+    out = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    if "proj.1.0.running_mean" in out:
+        out["proj.1.0.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # SSLViT (`models/ssl.py`): no reference converter exists, so the port's
 # names follow the flax tree and the two functions below carry weights both

@@ -1,7 +1,9 @@
 """Torch WaveFormer `state_dict` → the JAX package's parameter tree.
 
-A copy of `convert_state_dict` and its helpers from
-`waveformer_tpu/utils/torch_port.py` (numpy only). It maps the reference's
+A copy of `waveformer_tpu/utils/torch_port.py`: `convert_state_dict` and
+its helpers (numpy only), `convert_projection_head` and
+`load_torch_checkpoint`, which reads a reference `.pth` in every layout the
+reference and its DDP training write. It maps the reference's
 `state_dict` layout (`network_models/network_backbone.py` module tree, the
 port's model included) onto the flax `{"params": ...}` tree:
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def _strip_module_prefix(sd: Mapping[str, Any]) -> Dict[str, Any]:
@@ -191,3 +194,69 @@ def convert_state_dict(
             node = node.setdefault(p, {})
         node[path[-1]] = np.asarray(arr, dtype=np.float32)
     return {"params": nested}
+
+
+def convert_projection_head(
+    state_dict: Mapping[str, Any], prefix: str = ""
+) -> Dict[str, Any]:
+    """torch `ProjectionHead` (`network_backbone.py:35-63`) state dict →
+    flax variables `{"params": ..., "batch_stats": ...}`.
+
+    The torch module tree for `proj='convmlp'` is `proj.0` (Conv3d 1³),
+    `proj.1.0` (BatchNorm3d from `ModuleHelper.BNReLU`), `proj.2`
+    (Conv3d 1³); for `proj='linear'` it is a single conv at `proj`.
+    """
+    sd = _strip_module_prefix(state_dict)
+    if prefix:
+        plen = len(prefix) + 1
+        sd = {k[plen:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+    m = _Mapper(sd)
+    batch_stats: Dict[str, Any] = {}
+    if m.has("proj.weight"):  # linear variant
+        m.conv("proj", ("proj",))
+    else:
+        m.conv("proj.0", ("proj0",))
+        m.norm("proj.1.0", ("bn",))
+        m.conv("proj.2", ("proj2",))
+        batch_stats = {
+            "bn": {
+                "mean": _np(m._get("proj.1.0.running_mean")).astype(np.float32),
+                "var": _np(m._get("proj.1.0.running_var")).astype(np.float32),
+            }
+        }
+        m.used.add("proj.1.0.num_batches_tracked")
+    unused = set(m.sd) - m.used
+    if unused:
+        raise ValueError(f"unconverted torch keys: {sorted(unused)[:10]}")
+    nested: Dict[str, Any] = {}
+    for path, arr in m.out.items():
+        node = nested
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.asarray(arr, dtype=np.float32)
+    out: Dict[str, Any] = {"params": nested}
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    return out
+
+
+def load_torch_checkpoint(path: str, **kwargs) -> Dict[str, Any]:
+    """Load a reference `.pth`/`.pt` checkpoint file and convert it
+    (`convert_state_dict(sd, **kwargs)`).
+
+    Handles every layout the reference writes/reads:
+      * training-time dicts `{'model': sd, 'optimizer': …, 'epoch': …,
+        'dice_score': …}` (`light_training/utils/files_helper.py:13-32`,
+        `3_train.py:177-188`) — optimizer/scheduler entries are ignored;
+      * a nested `state_dict['module']` sub-dict and per-key `module.`
+        prefixes from DDP (`4_predict.py:287-306` `_filter_state_dict`);
+      * a bare `state_dict`.
+    The file is unpickled in full (`weights_only=False`, as the reference's
+    own dicts need): load only checkpoints from a trusted source.
+    """
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(raw, dict) and "model" in raw:
+        raw = raw["model"]
+    if isinstance(raw, dict) and "module" in raw and not hasattr(raw["module"], "shape"):
+        raw = raw["module"]
+    return convert_state_dict(raw, **kwargs)
