@@ -10,7 +10,9 @@ Phases, each of which must pass:
      shapes, in fp32 (TF32 off) and bf16, with its time beside the plain
      version's, a PyTorch library call's and the card's bound (the stencil
      also with a bias, on the design its rule names, beside the time of the
-     separate bias add its epilogue replaces);
+     separate bias add its epilogue replaces); attention and the stencil
+     also at every shape phase 14 gives them (a tensor rank's heads and
+     hidden channels, a spatial rank's windows and halo slabs);
   4. the flagship model on the card (kernels, fp32) against the same
      weights on the CPU (plain versions), batch 1 at 128³; then two more of
      the repository's configurations the same way, in the models' default
@@ -126,6 +128,21 @@ Phases, each of which must pass:
      trainer's, the warm steps/s and loader-wait share from
      `SSLTrainer.step_times`. To iterate on it alone: `chip_smoke.run_ssl()`
      after `_build.LIBRARIES.build_all()` and TF32 off.
+ 14. model parallelism on the one card: ranks are child processes over
+     gloo with CUDA tensors, each with TF32 off. The flagship at full width
+     and depth (seed-0 weights), 128³, batch 1, on phase 4's input, in
+     fp32 and bf16, through `make_mesh` → `shard_model` → `shard_batch` →
+     the sharded forward under `torch.no_grad()` → `gather_depth`: (a)
+     tensor=3 (3 ranks; tensor=2 does not divide stage 1's 3 heads), (b)
+     spatial=2 (2 ranks), each against a one-process forward in a child of
+     its own (fp32 within atol 2e-4 / rtol 1e-3, JAX's tolerance for its
+     sharding tests; bf16 within TOL["bfloat16"]), with exactly 14
+     attention and 10 stencil launches a forward on every rank on the
+     dtype's designs, and (b)'s fp32 peak memory a rank at most 0.7× the
+     one-process peak. Each rank's forward seconds and the bytes its
+     collectives moved are printed. Phase 14's launches count toward the
+     kernels line. To iterate on it alone: `chip_smoke.run_model_parallel()`
+     from a guarded script after `_build.LIBRARIES.build_all()`.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -168,6 +185,13 @@ ATTN_MAIN_SHAPES = [  # (B·nW, H, N, D) of the 14 calls of a batch-8 forward
 # networks' 2³ (head dim 4), a 3³
 ATTN_TEST_SHAPES = [(4, 3, 512, 16), (2, 24, 512, 16), (3, 2, 128, 8),
                     (4, 3, 216, 16), (16, 2, 8, 4), (2, 3, 27, 16)]
+# phase 14's calls (batch 1, N = 512, D = 16) that the lists above lack: the
+# one process's, a tensor=3 rank's H/3 heads, a spatial=2 rank's local
+# windows (its gathered grids are the one process's)
+ATTN_SHARDED_SHAPES = [(1, 3, 512, 16), (1, 6, 512, 16), (1, 12, 512, 16), (1, 24, 512, 16),
+                       (64, 1, 512, 16), (8, 1, 512, 16), (1, 1, 512, 16), (8, 2, 512, 16),
+                       (1, 2, 512, 16), (1, 4, 512, 16), (1, 8, 512, 16),
+                       (32, 3, 512, 16), (4, 6, 512, 16)]
 # two more of the repository's configurations, driven card against CPU:
 # examples/abdomen_ct/config.yaml:31-44 and examples/brats2023/run_example.py:107-119
 EXTRA_CONFIGS = {
@@ -183,6 +207,14 @@ EXTRA_CONFIGS = {
 DW_MAIN_SHAPES = [  # (B, D, H, W, C) of the 10 depthwise convs of a forward
     (8, 64, 64, 64, 192), (8, 32, 32, 32, 384), (8, 16, 16, 16, 768),
     (8, 8, 8, 8, 1536), (8, 64, 64, 64, 96),
+]
+# phase 14's calls: the one process's (batch 1), a tensor=3 rank's Ch/3
+# hidden channels, a spatial=2 rank's (D/2 + 2)-plane halo slabs
+DW_SHARDED_SHAPES = [
+    (1, 64, 64, 64, 192), (1, 32, 32, 32, 384), (1, 16, 16, 16, 768), (1, 8, 8, 8, 1536),
+    (1, 64, 64, 64, 96), (1, 64, 64, 64, 64), (1, 32, 32, 32, 128), (1, 16, 16, 16, 256),
+    (1, 8, 8, 8, 512), (1, 34, 64, 64, 192), (1, 18, 32, 32, 384), (1, 10, 16, 16, 768),
+    (1, 6, 8, 8, 1536), (1, 34, 64, 64, 96),
 ]
 # (B, (D, H, W), C, O) of the 16 dense 3³ convs of the 8 res blocks of a
 # batch-8 forward (encoder1-4, decoder4-2 and decoder1's conv blocks)
@@ -263,6 +295,11 @@ PARALLEL_STEPS = 2
 PARALLEL_SSL_STEPS = 4
 CHILD_TIMEOUT_S = 300
 GROUP_TIMEOUT_S = 60
+# phase 14, model parallelism: (data, spatial, tensor) of each sub-phase,
+# the one-process forward's first; a rank's peak over the one process's
+MODEL_PARALLEL_MESHES = {"one_process": (1, 1, 1), "tensor3": (1, 1, 3), "spatial2": (1, 2, 1)}
+MODEL_PARALLEL_TOL = {"float32": (1e-3, 2e-4), "bfloat16": TOL["bfloat16"]}  # (rtol, atol)
+MODEL_PARALLEL_PEAK_RATIO = 0.7
 
 
 def log(msg):
@@ -318,7 +355,7 @@ def within(got, want, dtype_name):
 def check_attention(ac):
     dev = torch.device("cuda")
     rows, ok = [], True
-    for shape in ATTN_MAIN_SHAPES + ATTN_TEST_SHAPES:
+    for shape in ATTN_MAIN_SHAPES + ATTN_TEST_SHAPES + ATTN_SHARDED_SHAPES:
         bw, h, n, d = shape
         g = torch.Generator(device=dev).manual_seed(SEED)
         q, k, v = (torch.randn(shape, device=dev, generator=g) for _ in range(3))
@@ -354,8 +391,8 @@ def check_attention(ac):
             row["bound_by"] = max(times, key=times.get)
             row["bound_ms"] = times[row["bound_by"]]
             row["bound_parts_ms"] = times
-        else:  # the ragged windows' time, beside nothing
-            row["ragged_ms_bf16"] = cuda_ms(lambda: ac.window_attention(qq, kk, vv, bias, scale))
+        else:  # the other shapes' time, beside nothing
+            row["other_ms_bf16"] = cuda_ms(lambda: ac.window_attention(qq, kk, vv, bias, scale))
         log(json.dumps(row))
         rows.append(row)
     return ok, rows
@@ -369,7 +406,7 @@ def check_dwconv(dc):
     bias add it replaces (`out + b`, bf16)."""
     dev = torch.device("cuda")
     rows, ok = [], True
-    for shape in DW_MAIN_SHAPES + [(2, 6, 5, 7, 96)]:
+    for shape in DW_MAIN_SHAPES + [(2, 6, 5, 7, 96)] + DW_SHARDED_SHAPES:
         g = torch.Generator(device=dev).manual_seed(SEED)
         x = torch.randn(shape, device=dev, generator=g)
         c = shape[-1]
@@ -1614,8 +1651,130 @@ def child_multihost(rank, world, workdir):
             dist.destroy_process_group()
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: model parallelism (the spatial and tensor axes)
+# --------------------------------------------------------------------------- #
+
+
+def child_model_parallel(rank, world, workdir):
+    """14, one rank: the flagship's sharded forward on the mesh in
+    `workdir/spec.json`, fp32 then bf16. Per dtype a warm-up forward, then
+    one timed: its launches per design, the bytes of its collectives, its
+    seconds, the fp32 peak memory, and (rank 0) the gathered logits."""
+    from waveformer_tpu_torch.config import Config
+    from waveformer_tpu_torch.models import create_waveformer
+    from waveformer_tpu_torch.ops import _build
+    from waveformer_tpu_torch.parallel import (
+        MeshSpec, gather_depth, make_mesh, shard_batch, shard_model)
+
+    _build.LIBRARIES.build_all()
+    child_join("mp", workdir, "gloo")
+    try:
+        with open(os.path.join(workdir, "spec.json")) as f:
+            spec = tuple(json.load(f))
+        mesh = make_mesh(MeshSpec(*spec))
+        kw = dict(Config().network.model_kwargs(), io_layout="channels_first")
+        x = np.random.default_rng(SEED).standard_normal((1, 4, 128, 128, 128)).astype(np.float32)
+        xs = torch.from_numpy(np.ascontiguousarray(shard_batch(mesh, x, depth_axis=2))).cuda()
+        out = {"coords": mesh.coords, "launches_total": {"window_attention": 0, "dwconv3": 0}}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = shard_model(create_waveformer(kw, dtype=dtype, device="cuda", seed=SEED),
+                                mesh)
+            name = str(dtype).split(".")[-1]
+            with torch.no_grad():
+                before = counter_snapshot()
+                model(xs)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                traffic0, mid = mesh.traffic.bytes, counter_snapshot()
+                t0 = time.time()
+                y = model(xs)
+                torch.cuda.synchronize()
+                seconds = time.time() - t0
+                after = counter_snapshot()
+                peak = torch.cuda.max_memory_allocated()
+                forward_bytes = mesh.traffic.bytes - traffic0
+                logits = gather_depth(y, mesh.spatial, axis=2).float().cpu()
+            for k in out["launches_total"]:
+                out["launches_total"][k] += after[k] - before[k]
+            out[name] = {
+                "seconds": seconds, "collective_bytes": forward_bytes,
+                "peak_bytes": peak, "slab": list(y.shape),
+                "per_forward": {k: {d: n - mid["designs"][k][d]
+                                    for d, n in after["designs"][k].items()}
+                                for k in ("window_attention", "dwconv3")},
+                "logits": logits if rank == 0 else None}
+            del model, y
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(workdir, f"mp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_model_parallel():
+    """Phase 14: the one-process forward in a child, then (a) tensor=3 and
+    (b) spatial=2 at 3 and 2 ranks over gloo on the one card, each rank's
+    gathered logits against the one process's. Returns (failed sub-phases,
+    the attention and stencil launches of the children)."""
+    failed, launches = [], {"window_attention": 0, "dwconv3": 0}
+    t_phase = time.time()
+    designs = {"float32": {"window_attention": {"fma": 14, "tma_wgmma": 0},
+                           "dwconv3": {"vector": 10, "tma_ring": 0}},
+               "bfloat16": {"window_attention": {"fma": 0, "tma_wgmma": 14},
+                            "dwconv3": {"vector": 0, "tma_ring": 10}}}
+    ref = None
+    for sub, spec in MODEL_PARALLEL_MESHES.items():
+        world = int(np.prod(spec))
+        with tempfile.TemporaryDirectory() as root:
+            with open(os.path.join(root, "spec.json"), "w") as f:
+                json.dump(spec, f)
+            t0 = time.time()
+            ok, ranks = spawn_ranks("mp", world, root)
+            wall = time.time() - t0
+        row = {"check": f"model_parallel_{sub}", "mesh": dict(zip(("data", "spatial", "tensor"),
+                                                                  spec)),
+               "ranks": world, "backend": "gloo", "wall_s": wall}
+        if ok:
+            for r in ranks:
+                for k in launches:
+                    launches[k] += r["launches_total"][k]
+            if ref is None:
+                ref = ranks[0]
+            for name in ("float32", "bfloat16"):
+                got, want = ranks[0][name]["logits"], ref[name]["logits"]
+                rtol, atol = MODEL_PARALLEL_TOL[name]
+                err = (got - want).abs()
+                use = float((err / (atol + rtol * want.abs())).max())  # of the limit
+                close = bool(torch.isfinite(got).all()) and use <= 1.0
+                per_forward = [r[name]["per_forward"] for r in ranks]
+                row[name] = {"max_abs_err": float(err.max()), "max_abs_logit": float(
+                    want.abs().max()), "rtol": rtol, "atol": atol, "worst_share_of_limit": use,
+                    "rank_forward_s": [r[name]["seconds"] for r in ranks],
+                    "rank_collective_bytes": [r[name]["collective_bytes"] for r in ranks],
+                    "rank_slab": [r[name]["slab"] for r in ranks],
+                    "launches_per_forward": per_forward[0]}
+                ok &= close and all(p == designs[name] for p in per_forward)
+            peaks = [r["float32"]["peak_bytes"] for r in ranks]
+            row["float32"]["rank_peak_bytes"] = peaks
+            row["float32"]["one_process_peak_bytes"] = ref["float32"]["peak_bytes"]
+            ratio = max(peaks) / ref["float32"]["peak_bytes"]
+            row["float32"]["peak_ratio"] = ratio
+            if spec[1] > 1:
+                row["peak_ratio_limit"] = MODEL_PARALLEL_PEAK_RATIO
+                ok &= ratio <= MODEL_PARALLEL_PEAK_RATIO
+        row["ok"] = bool(ok)
+        log(json.dumps(row))
+        if not ok:
+            failed.append(f"model_parallel_{sub}")
+            if ref is None:
+                break
+    log(json.dumps({"check": "model_parallel_phase", "seconds": time.time() - t_phase,
+                    "launches": launches, "failed": failed}))
+    return failed, launches
+
+
 CHILDREN = {"dp": child_dp_steps, "predict": child_sharded_predict,
-            "multihost": child_multihost}
+            "multihost": child_multihost, "mp": child_model_parallel}
 
 
 def free_port():
@@ -2204,6 +2363,10 @@ def main():
     failed += parallel_failed
     for name, n in parallel_launches.items():
         launches[name] += n
+    mp_failed, mp_launches = run_model_parallel()
+    failed += mp_failed
+    for name, n in mp_launches.items():
+        launches[name] += n
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")
@@ -2272,7 +2435,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--child"]:  # one rank of phase 13
+    if sys.argv[1:2] == ["--child"]:  # one rank of phase 13 or 14
         kind, rank, world, workdir = sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -943,3 +943,43 @@ class TestSslOnCard:
         assert np.isfinite(l1) and abs(l1 - l0) <= 1e-4 * abs(l0)
         assert abs(n1 - n0) <= 1e-3 * n0
         assert max(float((p1[k] - p0[k]).abs().max()) for k in p0) <= 1e-5
+
+
+# the shapes the sharded flagship forward gives the kernels: a tensor rank's
+# hidden channels (Ch/3) on a spatial rank's slab of 2 (D/2), and a rank's
+# heads of a stage (H/3) at the stage's windows
+SLAB_SHAPES = [(1, 64, 64, 64, 64), (1, 32, 32, 32, 128), (1, 8, 8, 8, 512), (2, 8, 6, 7, 20)]
+HEAD_SUBSETS = [((512, 3, 512, 16), 1), ((64, 6, 512, 16), 2), ((8, 24, 512, 16), 8)]
+
+
+@pytest.mark.cuda
+class TestModelParallelKernelsOnCard:
+    @pytest.mark.parametrize("shape", SLAB_SHAPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_stencil_on_halo_slab_equals_whole_volume(self, cuda_device, shape, dtype):
+        """Each rank of 2 runs the stencil on its D slab with one plane of
+        each neighbour (zeros beyond the volume) and drops the two edge
+        planes: the same 27 taps a voxel as the whole volume's call."""
+        x = torch.randn(shape, device=cuda_device).to(dtype)
+        k = torch.randn(3, 3, 3, shape[-1], device=cuda_device)
+        b = torch.randn(shape[-1], device=cuda_device)
+        whole = tdc.dwconv3(x, k, b)
+        padded = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 0, 1, 1))
+        dl = shape[1] // 2
+        for r in range(2):
+            got = tdc.dwconv3(padded[:, r * dl:(r + 1) * dl + 2].contiguous(), k, b)[:, 1:-1]
+            assert torch.equal(got, whole[:, r * dl:(r + 1) * dl])
+
+    @pytest.mark.parametrize("full,heads", HEAD_SUBSETS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_window_attention_on_head_subset(self, cuda_device, full, heads, dtype):
+        """A tensor rank's call on its heads equals those heads of the full
+        call (the heads are independent)."""
+        bw, h, n, d = full
+        q, k, v, b = (torch.from_numpy(a).to(cuda_device) for a in _qkvb(bw, h, n, d))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        whole = tac.window_attention(q, k, v, b, d**-0.5)
+        for h0 in range(0, h, heads):
+            s = slice(h0, h0 + heads)
+            got = tac.window_attention(q[:, s], k[:, s], v[:, s], b[s], d**-0.5)
+            assert torch.equal(got, whole[:, s])

@@ -1,4 +1,4 @@
-"""One rank of the port's data-parallel tests: a child process over gloo.
+"""One rank of the port's distributed tests: a child process over gloo.
 
     python tests/torch_dist_child.py SUITE RANK WORLD WORKDIR
 
@@ -12,7 +12,11 @@ results with the JAX package in their own process. Suites:
     `SyncBatchNorm`, the losses with a group, the data-parallel train and
     SSL steps, and `Trainer(mesh=...)` with a resume;
   * `scripts` (tests/test_torch_sharded.py): `scripts.predict --sharded on`
-    and `scripts.train --multihost`.
+    and `scripts.train --multihost`;
+  * `model_parallel` (tests/test_torch_model_parallel.py): the toy network's
+    forward on each mesh the test lists (`shard_model`, `shard_batch`,
+    `gather_depth`), then, on a `spatial` line of all ranks, the depth
+    primitives.
 """
 
 from __future__ import annotations
@@ -199,7 +203,60 @@ def run_scripts(inp, mesh, workdir):
     return out
 
 
-SUITES = {"parallel": run_parallel, "scripts": run_scripts}
+def run_model_parallel(inp, mesh, workdir):
+    """For each spec of `inp["specs"]`: this rank's place and lines, and the
+    logits of its data rows gathered along D. Then the depth primitives on
+    a spatial line of every rank, each on this rank's slab of its input."""
+    from waveformer_tpu_torch.models import create_waveformer
+    from waveformer_tpu_torch.models.common import ConvCL, InstanceNormAffine
+    from waveformer_tpu_torch.parallel import MeshSpec, shard_model, spatial
+    from waveformer_tpu_torch.parallel.mesh import make_mesh as mesh_of
+
+    ranks = lambda g: None if g is None else dist.get_process_group_ranks(g)
+    out = {"meshes": {}}
+    for spec in inp["specs"]:
+        m = mesh_of(MeshSpec(*spec))
+        model = create_waveformer(inp["cfg"], device="cpu")
+        model.load_state_dict(inp["state_dict"], strict=True)
+        shard_model(model, m)
+        with torch.no_grad():
+            y = model(torch.from_numpy(shard_batch(m, inp["x"])))
+            full = spatial.gather_depth(y, m.spatial)
+        out["meshes"][spec] = {
+            "coords": m.coords, "is_main": m.is_main, "rank": m.rank, "size": m.size,
+            "groups": [ranks(g) for g in (m.group, m.spatial_group, m.tensor_group)],
+            "slab": tuple(y.shape), "logits": full.numpy(), "traffic": m.traffic.bytes,
+            "params": {k: tuple(v.shape) for k, v in model.state_dict().items()}}
+
+    s = mesh_of(MeshSpec(spatial=dist.get_world_size())).spatial
+    mine = lambda a, axis=1: torch.from_numpy(np.split(a, s.size, axis)[s.rank].copy())
+    prims = out["primitives"] = {}
+    with torch.no_grad():
+        x = mine(inp["halo_x"])
+        prims["halo"] = {p: spatial.halo(x, s, p).numpy() for p in (1, 2)}
+        for name, (cin, cout, groups) in inp["convs"].items():
+            conv = ConvCL(cin, cout, 3, padding=1, groups=groups)
+            conv.load_state_dict(inp["conv_sd"][name])
+            conv.depth_shard = s
+            prims[name] = conv(mine(inp["conv_x"][name])).numpy()
+        prims["resize"] = {
+            (name, dt): spatial.resize_trilinear(mine(inp["resize_x"][src]).to(dt), size, align,
+                                                 s).float().numpy()
+            for name, (src, size, align) in inp["resizes"].items()
+            for dt in (torch.float32, torch.bfloat16)}
+        x = mine(inp["norm_x"])
+        norm = InstanceNormAffine(x.shape[-1])
+        norm.load_state_dict(inp["norm_sd"])
+        norm.depth_shard = s
+        prims["instance_norm"] = spatial.instance_norm(x, 1e-5, s).numpy()
+        prims["instance_norm_affine"] = norm(x).numpy()
+        prims["mean_dhw"] = spatial.mean_dhw(x, s).numpy()
+        prims["gather_cf"] = spatial.gather_depth(mine(inp["cf_x"], 2), s, axis=2).numpy()
+    return out
+
+
+SUITES = {"parallel": run_parallel, "scripts": run_scripts,
+          "model_parallel": run_model_parallel}
 
 
 def main(suite: str, rank: int, world: int, workdir: str) -> None:

@@ -4,19 +4,23 @@ Port of `waveformer_tpu/models/attention.py` (reference
 `network_models/attention.py:15-104`). The relative-position index keeps
 the reference's nonstandard strides (3w−1 for depth, 2w−1 for height,
 `attention.py:43-44`): released checkpoints bake them into the bias table.
-Every call goes through `ops.attention_cuda.window_attention`.
+Every call goes through `ops.attention_cuda.window_attention`. With a
+`tensor_shard` (`parallel/model_parallel.py::shard_model`) the module holds
+the q, k and v rows of its rank's heads and a row-parallel `proj`
+(`parallel/tensor_sharding.py`), and the kernel runs on those heads.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from waveformer_tpu_torch.ops.attention_cuda import window_attention
+from waveformer_tpu_torch.parallel.tensor_sharding import row_parallel_linear
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,6 +45,8 @@ class WindowAttention(nn.Module):
     The bias table stays fp32 whatever the compute dtype, as the JAX
     package keeps its parameters (see `Waveformer.set_compute_dtype`)."""
 
+    tensor_shard = None  # this rank's `tensor` line, set by `shard_model`
+
     def __init__(
         self,
         dim: int,
@@ -53,8 +59,8 @@ class WindowAttention(nn.Module):
         self.dim = dim
         self.num_heads = num_heads
         self.window_size = window_size
-        hd = dim // num_heads
-        self.scale = qk_scale if qk_scale is not None else hd**-0.5
+        self.head_dim = dim // num_heads
+        self.scale = qk_scale if qk_scale is not None else self.head_dim**-0.5
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -66,17 +72,29 @@ class WindowAttention(nn.Module):
             torch.from_numpy(relative_position_index(window_size).astype(np.int64)),
         )
 
+    def heads(self) -> Tuple[int, int]:
+        """(first, count) of the heads this rank computes: all of them
+        without a tensor shard."""
+        t = self.tensor_shard
+        if t is None:
+            return 0, self.num_heads
+        h = self.num_heads // t.size
+        return t.rank * h, h
+
     def bias(self) -> torch.Tensor:
-        """(H, N, N) fp32 bias gathered from the table."""
+        """(H, N, N) fp32 bias gathered from the table, for `heads()`."""
         n = self.window_size**3
+        h0, h = self.heads()
         idx = self.relative_position_index.reshape(-1)
-        table = self.relative_position_bias_table.float()
-        return table[idx].reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous()
+        table = self.relative_position_bias_table.float()[:, h0:h0 + h]
+        return table[idx].reshape(n, n, h).permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        h = self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        b, n, _ = x.shape
+        _, h = self.heads()
+        qkv = self.qkv(x).reshape(b, n, 3, h, self.head_dim).permute(2, 0, 3, 1, 4)
         out = window_attention(qkv[0], qkv[1], qkv[2], self.bias(), self.scale)
-        out = out.transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+        out = out.transpose(1, 2).reshape(b, n, h * self.head_dim)
+        if self.tensor_shard is None:
+            return self.proj(out)
+        return row_parallel_linear(out, self.proj, self.tensor_shard)

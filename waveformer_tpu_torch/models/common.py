@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from waveformer_tpu_torch.ops.dwconv_cuda import dwconv3
+from waveformer_tpu_torch.parallel import spatial
 
 
 def to_cf(x: torch.Tensor) -> torch.Tensor:
@@ -45,9 +46,12 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, shard=None) -> torch.Tensor:
     """InstanceNorm over the spatial axes of channels-last x, no affine.
-    Statistics and result are fp32."""
+    Statistics and result are fp32. With a `spatial` shard, x is this rank's
+    D slab and the statistics are the whole volume's."""
+    if shard is not None:
+        return spatial.instance_norm(x, eps, shard)
     x32 = x.float()
     var, mean = torch.var_mean(x32, dim=(1, 2, 3), keepdim=True, unbiased=False)
     return (x32 - mean) * torch.rsqrt(var + eps)
@@ -56,6 +60,8 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 class InstanceNormAffine(nn.Module):
     """`nn.InstanceNorm3d(affine=True)` on channels-last input."""
 
+    depth_shard = None  # this rank's `spatial` line, set by `shard_model`
+
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
@@ -63,7 +69,7 @@ class InstanceNormAffine(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = instance_norm(x, self.eps) * self.weight.float() + self.bias.float()
+        y = instance_norm(x, self.eps, self.depth_shard) * self.weight.float() + self.bias.float()
         return y.to(x.dtype)
 
 
@@ -124,21 +130,31 @@ class ConvCL(nn.Conv3d):
     A 1³ stride-1 conv is a matmul over channels; a depthwise 3³ stride-1
     conv with padding 1 is the stencil kernel, whose epilogue adds the bias
     (on the CPU the plain stencil plus the bias); anything else is
-    `F.conv3d` on the channels-first view."""
+    `F.conv3d` on the channels-first view.
+
+    With a `depth_shard`, x is this rank's D slab: the stencil runs on the
+    slab with one halo plane a side and drops the two edge planes of its
+    result, a dense 3³ SAME conv is `spatial.conv3_same`, and convs whose
+    D kernel is 1 or equals their stride stay local."""
+
+    depth_shard = None  # this rank's `spatial` line, set by `shard_model`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel_size
         c = self.in_channels
+        shard = self.depth_shard
         if k == (1, 1, 1) and self.stride == (1, 1, 1) and self.groups == 1:
             return F.linear(x, self.weight.flatten(1), self.bias)
-        if (
-            k == (3, 3, 3)
-            and self.stride == (1, 1, 1)
-            and self.padding == (1, 1, 1)
-            and self.groups == c == self.out_channels
-        ):
+        same3 = k == (3, 3, 3) and self.stride == (1, 1, 1) and self.padding == (1, 1, 1)
+        if same3 and self.groups == c == self.out_channels:
             kernel = self.weight[:, 0].permute(1, 2, 3, 0)  # (3, 3, 3, C)
-            return dwconv3(x, kernel, self.bias)
+            if shard is None:
+                return dwconv3(x, kernel, self.bias)
+            return dwconv3(spatial.halo(x, shard), kernel, self.bias)[:, 1:-1].contiguous()
+        if shard is not None and same3 and self.groups == 1:
+            return spatial.conv3_same(x, self.weight, self.bias, shard)
+        if shard is not None and not (k[0] == self.stride[0] and self.padding[0] == 0):
+            raise NotImplementedError(f"{self} on a depth slab")
         return to_cl(super().forward(to_cf(x)))
 
 

@@ -5,7 +5,9 @@ Port of `waveformer_tpu/models/conv_blocks.py`: `UnetResBlock`,
 reference's `ProjectionHead` and `ChannelCalibration`. Channels-last, InstanceNorm without
 affine (eps 1e-5, fp32 statistics), LeakyReLU 0.01, bias-free convs except
 the 1³ output head. The TPU batch scan (`_scan_over_batch`) has no
-counterpart: PyTorch runs the batch in one call.
+counterpart: PyTorch runs the batch in one call. With a `depth_shard`
+(`parallel/model_parallel.py::shard_model`) a block holds a D slab and its
+InstanceNorms take the whole volume's statistics.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ from waveformer_tpu_torch.models.common import (
     instance_norm,
     leaky_relu,
 )
+from waveformer_tpu_torch.parallel import spatial
 from waveformer_tpu_torch.parallel.collectives import SyncBatchNorm
 
 
 class UnetResBlock(nn.Module):
     """conv3→IN→lrelu→conv3→IN (+1³ shortcut if channels change)→+→lrelu."""
+
+    depth_shard = None  # this rank's `spatial` line, set by `shard_model`
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
         super().__init__()
@@ -40,15 +45,17 @@ class UnetResBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = x.dtype
-        h = leaky_relu(instance_norm(self.conv1(x))).to(dtype)
-        h = instance_norm(self.conv2(h))
-        residual = x.float() if self.conv3 is None else instance_norm(self.conv3(x))
+        dtype, s = x.dtype, self.depth_shard
+        h = leaky_relu(instance_norm(self.conv1(x), shard=s)).to(dtype)
+        h = instance_norm(self.conv2(h), shard=s)
+        residual = x.float() if self.conv3 is None else instance_norm(self.conv3(x), shard=s)
         return leaky_relu(h + residual).to(dtype)
 
 
 class UnetBasicBlock(nn.Module):
     """conv3→IN→lrelu→conv3→IN→lrelu, no shortcut."""
+
+    depth_shard = None  # this rank's `spatial` line, set by `shard_model`
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
         super().__init__()
@@ -56,9 +63,9 @@ class UnetBasicBlock(nn.Module):
         self.conv2 = Convolution(out_channels, out_channels, kernel_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = x.dtype
-        h = leaky_relu(instance_norm(self.conv1(x))).to(dtype)
-        return leaky_relu(instance_norm(self.conv2(h))).to(dtype)
+        dtype, s = x.dtype, self.depth_shard
+        h = leaky_relu(instance_norm(self.conv1(x), shard=s)).to(dtype)
+        return leaky_relu(instance_norm(self.conv2(h), shard=s)).to(dtype)
 
 
 def _res_or_basic(res_block: bool, cin: int, cout: int, k: int) -> nn.Module:
@@ -158,6 +165,8 @@ class ChannelCalibration(nn.Module):
     1³ reduce → IN → relu → 3³ conv → IN → relu → 1³ expand → IN → SE gate
     (pool → fc → relu → fc → sigmoid) → ×, + 1³ residual → relu."""
 
+    depth_shard = None  # this rank's `spatial` line, set by `shard_model`
+
     def __init__(self, in_channels: int, reduction_ratio: int = 4):
         super().__init__()
         c = in_channels
@@ -170,12 +179,12 @@ class ChannelCalibration(nn.Module):
         self.fc2 = nn.Linear(rc, c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = x.dtype
+        dtype, s = x.dtype, self.depth_shard
         identity = self.residual(x)
-        h = F.relu(instance_norm(self.reduce(x))).to(dtype)
-        h = F.relu(instance_norm(self.conv(h))).to(dtype)
-        h = instance_norm(self.expand(h)).to(dtype)
-        se = h.mean(dim=(1, 2, 3))
+        h = F.relu(instance_norm(self.reduce(x), shard=s)).to(dtype)
+        h = F.relu(instance_norm(self.conv(h), shard=s)).to(dtype)
+        h = instance_norm(self.expand(h), shard=s).to(dtype)
+        se = h.mean(dim=(1, 2, 3)) if s is None else spatial.mean_dhw(h, s)
         se = torch.sigmoid(self.fc2(F.relu(self.fc1(se))))
         h = h * se[:, None, None, None, :]
         return F.relu(h.float() + identity.float()).to(dtype)

@@ -12,14 +12,19 @@ import torch
 import torch.nn as nn
 
 from waveformer_tpu_torch.models.common import ChannelGroupNorm, ConvCL, gelu
-from waveformer_tpu_torch.ops.resize import resize_trilinear
+from waveformer_tpu_torch.parallel import spatial, tensor_sharding
 
 
 class CCF_FFN(nn.Module):
     """Convolutional channel-fusion FFN (reference `wave_helper.py:196-300`):
     pwconv(1³) → LN → GELU → dwconv(3³) → LN → GELU → Linear → +residual.
     The residual is inside the FFN; the block adds a second one. Both
-    LayerNorms use eps 1e-5 (torch defaults in the reference)."""
+    LayerNorms use eps 1e-5 (torch defaults in the reference). With a
+    `tensor_shard` the hidden channels are this rank's slice: `pwconv`
+    column-parallel, the norms' statistics summed over the line, `fc`
+    row-parallel (`parallel/tensor_sharding.py`)."""
+
+    tensor_shard = None  # this rank's `tensor` line, set by `shard_model`
 
     def __init__(self, in_features: int, hidden_features: int):
         super().__init__()
@@ -32,9 +37,14 @@ class CCF_FFN(nn.Module):
         self.fc = nn.Linear(hidden_features, in_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = gelu(self.norm1(self.pwconv(x)))
-        h = gelu(self.norm2(self.dwconv(h)))
-        return x + self.fc(h)
+        t = self.tensor_shard
+        if t is None:
+            h = gelu(self.norm1(self.pwconv(x)))
+            h = gelu(self.norm2(self.dwconv(h)))
+            return x + self.fc(h)
+        h = gelu(tensor_sharding.layer_norm(self.pwconv(x), self.norm1, t))
+        h = gelu(tensor_sharding.layer_norm(self.dwconv(h), self.norm2, t))
+        return x + tensor_sharding.row_parallel_linear(h, self.fc, t)
 
 
 # Slice offsets of the reference PatchMerging (`wave_helper.py:183-190`),
@@ -71,13 +81,18 @@ class _UpsampleCL(nn.Module):
     """Trilinear ×stride with align_corners=True on channels-last input
     (the `nn.Upsample` at index 0 of the reference's Sequentials)."""
 
+    depth_shard = None  # this rank's `spatial` line, set by `shard_model`
+
     def __init__(self, stride: int):
         super().__init__()
         self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = tuple(s * self.stride for s in x.shape[1:4])
-        return resize_trilinear(x, out, align_corners=True)
+        grid = list(x.shape[1:4])
+        if self.depth_shard is not None:
+            grid[0] *= self.depth_shard.size
+        out = tuple(s * self.stride for s in grid)
+        return spatial.resize_trilinear(x, out, True, self.depth_shard)
 
 
 class ProjectionUpsample(nn.Module):

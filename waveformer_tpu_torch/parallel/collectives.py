@@ -14,7 +14,9 @@ distributed mechanisms:
   * `SyncBatchNorm` — BatchNorm with global-batch moments
     (`SyncBatchNorm.convert_sync_batchnorm`,
     `light_training/trainer.py:354`), JAX's formula;
-  * `shard_cases_for_eval` — the sampler's pad-and-slice, exactly as JAX.
+  * `shard_cases_for_eval` — the sampler's pad-and-slice, exactly as JAX;
+  * `AxisShard` — this process's line of a model-parallel axis (`spatial`
+    or `tensor`), whose all-reduces a sharded forward counts in `Traffic`.
 
 Gradients. Every rank runs its own autograd, and a collective's backward
 sums the cotangents that every rank's copy of the loss sends back
@@ -38,6 +40,7 @@ they carry here.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -164,3 +167,42 @@ def shard_cases_for_eval(n_cases: int, n_shards: int) -> Tuple[np.ndarray, int]:
     per_shard = -(-n_cases // n_shards)
     idx = np.arange(per_shard * n_shards) % max(n_cases, 1)
     return idx.reshape(n_shards, per_shard), n_cases
+
+
+@dataclasses.dataclass
+class Traffic:
+    """What the model-parallel collectives of a mesh moved: the bytes of
+    the buffers this rank handed to `all_reduce`."""
+
+    bytes: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisShard:
+    """This process's line of a model-parallel mesh axis (`spatial` or
+    `tensor`): the line's group, this rank's coordinate on it and its
+    length. Its collectives sum in place and are counted in `traffic`.
+    They have no backward: a sharded forward serves (training under these
+    axes is not ported), and one that autograd records raises."""
+
+    group: dist.ProcessGroup
+    rank: int
+    size: int
+    traffic: Traffic
+
+    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over the line, in place in `x` (a contiguous tensor the caller
+        owns); returns x."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "the spatial and tensor axes shard only a forward without gradients")
+        self.traffic.bytes += x.numel() * x.element_size()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(size, *x.shape): every rank's x in line order (an all-reduce of
+        a zero-filled slot buffer, as `_gather`)."""
+        buf = x.new_zeros((self.size, *x.shape))
+        buf[self.rank] = x
+        return self.all_reduce_(buf)

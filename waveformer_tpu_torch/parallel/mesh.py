@@ -1,22 +1,32 @@
-"""Data parallelism over `torch.distributed`: one process per card.
+"""The device mesh over `torch.distributed`: one process per rank.
 
-Port of the `data` axis of `waveformer_tpu/parallel/mesh.py`. The JAX
-package drives one logical device mesh from one controller; the reference
+Port of `waveformer_tpu/parallel/mesh.py`. The JAX package drives one
+logical device mesh from one controller; the reference
 (`light_training/trainer.py:355-358`, `launch.py:69-117`) and this port run
-one process per card, started by `torchrun`, in one process group. A
-`Mesh` is this process's place on the `data` axis: its rank, the group
-and the device that host values go to for a collective (the card under
-NCCL, the CPU under gloo).
+one process per rank, started by `torchrun`, in one process group. A
+`Mesh` is this process's place in it: its coordinate on each of the three
+axes, a group for its line of each axis that is longer than 1, and the
+device that host values go to for a collective (the card under NCCL, the
+CPU under gloo).
 
   * `init_distributed` joins the group from the variables `torchrun` sets
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on the
     card, gloo when the caller asks for the CPU or for gloo.
-  * `make_mesh` puts every rank of the group on `data`. The `spatial` and
-    `tensor` axes (the JAX package's depth sharding and
-    `parallel/tensor_sharding.py`) are not ported: a spec with either
-    above 1 raises.
-  * `shard_batch` keeps this rank's rows of a global batch; `replicate`
-    broadcasts tensors from rank 0, in place.
+  * `make_mesh` lays the ranks out as JAX's `make_mesh` lays out devices,
+    rank = (d·S + s)·T + t (`mesh_coords`). A spec with only `data` above 1
+    puts every rank of the group on `data`, with no new group. Otherwise
+    every rank makes one group per line of each axis longer than 1
+    (`axis_lines`), in the same order.
+  * `data` keeps `Mesh.rank`, `Mesh.group` and `Mesh.size`: the trainers'
+    data parallelism and `predict_cases_sharded` read only these.
+    `spatial` (the depth D of a volume, `parallel/spatial.py`) and `tensor`
+    (Megatron slices of the attention and FFN, `parallel/tensor_sharding.py`)
+    are `AxisShard`s that `parallel/model_parallel.py::shard_model` hands
+    to the model; they shard the serving forward only, and the trainers
+    raise for them (`check_data_only`).
+  * `shard_batch` keeps this rank's rows of a global batch, and its D slab
+    when `spatial` > 1 (JAX's `batch_spec`); `replicate` broadcasts tensors
+    from rank 0 of the data line, in place.
 
 Without an initialised group, `make_mesh()` is a mesh of one process with
 no group, on which nothing communicates.
@@ -28,11 +38,13 @@ import contextlib
 import dataclasses
 import os
 from datetime import timedelta
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from waveformer_tpu_torch.parallel.collectives import AxisShard, Traffic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +69,20 @@ class MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place on the `data` axis of a process group."""
+    """This process's place in a mesh of processes: `rank` and `group` are
+    its coordinate and line on `data`, `spatial` and `tensor` its lines of
+    the model-parallel axes (None where the axis has length 1)."""
 
     spec: MeshSpec
     rank: int = 0
-    # None: one process and no group; nothing communicates
+    # None: one process on the data axis; nothing communicates on it
     group: Optional[dist.ProcessGroup] = None
     # where host values go for a collective: the card under NCCL
     device: torch.device = torch.device("cpu")
+    spatial: Optional[AxisShard] = None
+    tensor: Optional[AxisShard] = None
+    # what the spatial and tensor collectives moved
+    traffic: Traffic = dataclasses.field(default_factory=Traffic)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -76,9 +94,22 @@ class Mesh:
         return self.spec.data
 
     @property
+    def coords(self) -> Tuple[int, int, int]:
+        """(data, spatial, tensor) coordinates of this process."""
+        return (self.rank, *(0 if a is None else a.rank for a in (self.spatial, self.tensor)))
+
+    @property
+    def spatial_group(self) -> Optional[dist.ProcessGroup]:
+        return None if self.spatial is None else self.spatial.group
+
+    @property
+    def tensor_group(self) -> Optional[dist.ProcessGroup]:
+        return None if self.tensor is None else self.tensor.group
+
+    @property
     def is_main(self) -> bool:
-        """Rank 0, the one process that writes logs and checkpoints."""
-        return self.rank == 0
+        """The process at (0, 0, 0), the one that writes logs and checkpoints."""
+        return self.coords == (0, 0, 0)
 
     def barrier(self) -> None:
         """Wait for every rank (an all-reduce of one element on the
@@ -124,10 +155,28 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
+def mesh_coords(rank: int, spec: MeshSpec) -> Tuple[int, int, int]:
+    """(data, spatial, tensor) coordinates of `rank`: where JAX's
+    `np.asarray(devices).reshape(data, spatial, tensor)` puts device
+    `rank`, so rank = (d·S + s)·T + t."""
+    return tuple(int(i) for i in np.unravel_index(rank, spec.shape))
+
+
+def axis_lines(spec: MeshSpec, axis: str) -> List[List[int]]:
+    """The ranks of every line along `axis` (the others fixed), each in
+    axis order; the lines in rank order of their first member."""
+    grid = np.arange(spec.size()).reshape(spec.shape)
+    a = spec.axis_names.index(axis)
+    return np.moveaxis(grid, a, -1).reshape(-1, spec.shape[a]).tolist()
+
+
 def make_mesh(spec: Optional[MeshSpec] = None,
               group: Optional[dist.ProcessGroup] = None) -> Mesh:
-    """A mesh of every rank of `group` (the default group) on `data`; a
-    mesh of one process when no group is initialised."""
+    """A mesh of the ranks of `group` (the default group), every rank on
+    `data` without a spec; a mesh of one process when no group is
+    initialised. Every process of the job calls it with the same spec: a
+    model-parallel spec makes its lines with `dist.new_group`, which every
+    process enters."""
     if dist.is_initialized():
         group = group or dist.group.WORLD
         world, rank = dist.get_world_size(group), dist.get_rank(group)
@@ -136,14 +185,39 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     else:
         world, rank, group, device = 1, 0, None, torch.device("cpu")
     spec = spec or MeshSpec(data=world)
-    if spec.spatial > 1 or spec.tensor > 1:
-        raise NotImplementedError(
-            f"mesh spec {spec.shape}: only the data axis is ported "
-            "(spatial and tensor sharding are not)")
     if spec.size() != world:
+        if group is None and (spec.spatial > 1 or spec.tensor > 1):
+            # JAX's one controller places such a mesh on its devices; the
+            # port needs one process per rank
+            raise NotImplementedError(
+                f"mesh spec {spec.shape}: a model-parallel mesh needs one process "
+                "per rank (start them with torchrun); this process has no group")
         raise ValueError(f"mesh spec {spec.shape} needs {spec.size()} processes, "
                          f"got {world}")
-    return Mesh(spec, rank, group, device)
+    if spec.spatial == spec.tensor == 1:
+        return Mesh(spec, rank, group, device)
+    lines = {}
+    for a, axis in enumerate(spec.axis_names):
+        if spec.shape[a] == 1:
+            continue
+        for members in axis_lines(spec, axis):
+            g = dist.new_group([dist.get_global_rank(group, m) for m in members])
+            if rank in members:
+                lines[axis] = g
+    d, s, t = mesh_coords(rank, spec)
+    traffic = Traffic()
+    shard = lambda axis, coord, n: AxisShard(lines[axis], coord, n, traffic) if n > 1 else None
+    return Mesh(spec, d, lines.get("data"), device, spatial=shard("spatial", s, spec.spatial),
+                tensor=shard("tensor", t, spec.tensor), traffic=traffic)
+
+
+def check_data_only(mesh: Optional[Mesh], what: str) -> None:
+    """Raise unless `mesh` shards the batch alone: the `spatial` and
+    `tensor` axes shard the serving forward only (`shard_model`)."""
+    if mesh is not None and (mesh.spec.spatial > 1 or mesh.spec.tensor > 1):
+        raise NotImplementedError(
+            f"{what} takes a data mesh; mesh {mesh.shape} splits the model "
+            "(training under the spatial and tensor axes is not ported)")
 
 
 def default_mesh_for_batch(batch_size: int) -> Mesh:
@@ -157,16 +231,25 @@ def default_mesh_for_batch(batch_size: int) -> Mesh:
     return mesh
 
 
-def shard_batch(mesh: Mesh, batch):
-    """This rank's rows of a global batch: an array or tensor, or a dict of
-    them."""
+def shard_batch(mesh: Mesh, batch, depth_axis: int = 1):
+    """This rank's rows of a global batch (an array or tensor, or a dict of
+    them) and, when `spatial` > 1, its planes along `depth_axis` (1 for
+    channels-last (B, D, H, W, C), 2 for (B, C, D, H, W))."""
     if isinstance(batch, dict):
-        return {k: shard_batch(mesh, v) for k, v in batch.items()}
+        return {k: shard_batch(mesh, v, depth_axis) for k, v in batch.items()}
     n = batch.shape[0]
     if n % mesh.size:
         raise ValueError(f"global batch {n} does not split over {mesh.size} processes")
     b = n // mesh.size
-    return batch[mesh.rank * b:(mesh.rank + 1) * b]
+    rows = batch[mesh.rank * b:(mesh.rank + 1) * b]
+    if mesh.spatial is None:
+        return rows
+    d, s = rows.shape[depth_axis], mesh.spatial
+    if d % s.size:
+        raise ValueError(f"depth {d} does not split over {s.size} spatial ranks")
+    index = [slice(None)] * rows.ndim
+    index[depth_axis] = slice(s.rank * d // s.size, (s.rank + 1) * d // s.size)
+    return rows[tuple(index)]
 
 
 def replicate(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:

@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from waveformer_tpu_torch.parallel.collectives import all_gather_with_grad, cross_replica_mean
-from waveformer_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from waveformer_tpu_torch.parallel.mesh import Mesh, check_data_only, replicate, shard_batch
 from waveformer_tpu_torch.training.checkpoint import CheckpointManager
 from waveformer_tpu_torch.training.schedules import warmup_cosine_schedule
 from waveformer_tpu_torch.training.state import (
@@ -215,6 +215,7 @@ def make_ssl_step(model: torch.nn.Module, temperature: float = 0.5,
     recon parts, and the unclipped gradient norm. With a mesh that has a
     group, v1, v2 and gt are this rank's rows of the global batch and the
     loss is the global batch's (see the module's docstring)."""
+    check_data_only(mesh, "make_ssl_step")
     named = dict(model.named_parameters())
     group = mesh.group if mesh is not None else None
     reducer = GradientReducer(mesh) if group is not None else None
@@ -262,6 +263,7 @@ class SSLTrainer:
         # the dtype the module computes in, from train() on
         compute_dtype: torch.dtype = torch.float32,
     ):
+        check_data_only(mesh, "SSLTrainer")
         self.model = model
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main

@@ -48,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 from waveformer_tpu_torch.models.common import shard_drop_path
-from waveformer_tpu_torch.parallel.mesh import Mesh
+from waveformer_tpu_torch.parallel.mesh import Mesh, check_data_only
 from waveformer_tpu_torch.training.schedules import Schedule, constant_schedule
 
 
@@ -247,6 +247,7 @@ def make_train_step(
     global batch, every rank seeds `generator` alike, and the gradients
     and the loss are averaged over the ranks before the clip (the step's
     `reducer`); the module's drop paths draw the global batch's masks."""
+    check_data_only(mesh, "make_train_step")
     named = dict(model.named_parameters())
     reducer = None
     if mesh is not None and mesh.group is not None:

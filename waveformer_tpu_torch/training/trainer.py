@@ -50,7 +50,7 @@ import torch
 
 from waveformer_tpu_torch.data.pipeline import PrefetchLoader
 from waveformer_tpu_torch.parallel.collectives import gather_metrics
-from waveformer_tpu_torch.parallel.mesh import Mesh, replicate
+from waveformer_tpu_torch.parallel.mesh import Mesh, check_data_only, replicate
 from waveformer_tpu_torch.training.checkpoint import CheckpointManager, params_tree
 from waveformer_tpu_torch.training.losses import dice_ce_loss
 from waveformer_tpu_torch.training.schedules import make_schedule
@@ -115,6 +115,7 @@ class Trainer:
         # the dtype the module computes in, from train() on
         compute_dtype: torch.dtype = torch.float32,
     ):
+        check_data_only(mesh, "Trainer")
         self.model = model
         self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
