@@ -11,8 +11,9 @@ Phases, each of which must pass:
      version's, a PyTorch library call's and the card's bound (the stencil
      also with a bias, on the design its rule names, beside the time of the
      separate bias add its epilogue replaces); attention and the stencil
-     also at every shape phase 14 gives them (a tensor rank's heads and
-     hidden channels, a spatial rank's windows and halo slabs);
+     also at every shape phases 14 and 15 give them (a tensor rank's heads
+     and hidden channels, a spatial rank's windows and halo slabs, the 64³
+     flagship's 4³-token windows);
   4. the flagship model on the card (kernels, fp32) against the same
      weights on the CPU (plain versions), batch 1 at 128³; then two more of
      the repository's configurations the same way, in the models' default
@@ -143,6 +144,32 @@ Phases, each of which must pass:
      collectives moved are printed. Phase 14's launches count toward the
      kernels line. To iterate on it alone: `chip_smoke.run_model_parallel()`
      from a guarded script after `_build.LIBRARIES.build_all()`.
+ 15. model-parallel training on the one card, the ranks as in phase 14:
+     the flagship (seed-0 weights, channels-last, batch 1, phase 10b's
+     kind of input: unit normal plus the tumour mask, its concentric
+     labels) takes two train steps (`master_params`, then `shard_model`,
+     `shard_batch`, `make_train_step`) against the same two steps in a
+     one-process child: (a) spatial=2 at 128³ in fp32 and bf16; (b)
+     tensor=3 in fp32 at 64³ (three ranks of fp32 128³ activations would
+     not fit the card) and in bf16 at 128³. Gates: step 1's assembled
+     gradients against the one process's, each parameter's ‖Δg‖ within
+     MP_TRAIN_TOL (fp32 and bf16), the unclipped norm within 1e-4 relative
+     in fp32, the ranks' masters bit-equal after the steps, exactly 14
+     attention and 10 stencil launches a step on every rank on the dtype's
+     designs, and at spatial=2 a rank's fp32 peak at most 0.7× the one
+     process's. Each rank's seconds a step, forward and backward collective
+     bytes and the gradient assembly's device ms a line are printed. (c)
+     `Trainer(mesh=spatial=2)` on phase 10c's kind of tree (bf16, batch 2,
+     the loader in the row lead's process, whose spawned workers would
+     start up longer than the 2 steps take; patch validation and
+     full-volume validation on the unsharded copy at (0, 0, 0)), then a
+     periodic state that a second trainer, built from other weights,
+     reloads to bit-equal masters on both ranks; (d)
+     `SSLTrainer(mesh=spatial=2)`, two fp32 steps (the first at lr 0) of
+     phase 12a's SSLViT, its masters equal on both ranks and within phase
+     10a's master limit of the steps without a mesh. To iterate on it
+     alone: `chip_smoke.run_model_parallel_training()` from a guarded
+     script after `_build.LIBRARIES.build_all()`.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -192,6 +219,13 @@ ATTN_SHARDED_SHAPES = [(1, 3, 512, 16), (1, 6, 512, 16), (1, 12, 512, 16), (1, 2
                        (64, 1, 512, 16), (8, 1, 512, 16), (1, 1, 512, 16), (8, 2, 512, 16),
                        (1, 2, 512, 16), (1, 4, 512, 16), (1, 8, 512, 16),
                        (32, 3, 512, 16), (4, 6, 512, 16)]
+# phase 15's calls that phase 14 does not make: the 64³ flagship's 4³-token
+# windows, the one process's heads and a tensor=3 rank's H/3 (its 128³
+# calls are phase 14's)
+ATTN_TRAIN_SHAPES = [(64, 3, 64, 16), (8, 3, 64, 16), (1, 3, 64, 16), (8, 6, 64, 16),
+                     (1, 6, 64, 16), (1, 12, 64, 16), (1, 24, 64, 16), (64, 1, 64, 16),
+                     (8, 1, 64, 16), (1, 1, 64, 16), (8, 2, 64, 16), (1, 2, 64, 16),
+                     (1, 4, 64, 16), (1, 8, 64, 16)]
 # two more of the repository's configurations, driven card against CPU:
 # examples/abdomen_ct/config.yaml:31-44 and examples/brats2023/run_example.py:107-119
 EXTRA_CONFIGS = {
@@ -215,6 +249,12 @@ DW_SHARDED_SHAPES = [
     (1, 64, 64, 64, 96), (1, 64, 64, 64, 64), (1, 32, 32, 32, 128), (1, 16, 16, 16, 256),
     (1, 8, 8, 8, 512), (1, 34, 64, 64, 192), (1, 18, 32, 32, 384), (1, 10, 16, 16, 768),
     (1, 6, 8, 8, 1536), (1, 34, 64, 64, 96),
+]
+# phase 15's 64³ calls: the one process's and a tensor=3 rank's Ch/3
+DW_TRAIN_SHAPES = [
+    (1, 32, 32, 32, 192), (1, 16, 16, 16, 384), (1, 8, 8, 8, 768), (1, 4, 4, 4, 1536),
+    (1, 32, 32, 32, 96), (1, 32, 32, 32, 64), (1, 16, 16, 16, 128), (1, 8, 8, 8, 256),
+    (1, 4, 4, 4, 512),
 ]
 # (B, (D, H, W), C, O) of the 16 dense 3³ convs of the 8 res blocks of a
 # batch-8 forward (encoder1-4, decoder4-2 and decoder1's conv blocks)
@@ -300,6 +340,21 @@ GROUP_TIMEOUT_S = 60
 MODEL_PARALLEL_MESHES = {"one_process": (1, 1, 1), "tensor3": (1, 1, 3), "spatial2": (1, 2, 1)}
 MODEL_PARALLEL_TOL = {"float32": (1e-3, 2e-4), "bfloat16": TOL["bfloat16"]}  # (rtol, atol)
 MODEL_PARALLEL_PEAK_RATIO = 0.7
+# phase 15, model-parallel training: each sub-phase's mesh and its runs
+# (dtype, cube side); the one-process child runs every run once
+MP_TRAIN_RUNS = {"spatial2": ((1, 2, 1), (("float32", 128), ("bfloat16", 128))),
+                 "tensor3": ((1, 1, 3), (("float32", 64), ("bfloat16", 128)))}
+# step 1's gradients, each parameter's ‖Δg‖ against (its ‖g‖, the model's
+# max |g|·√n). fp32: sums in other orders (TF32 off); the CPU test of these
+# steps on the 32³ toy found up to 1.4e-3 of ‖g‖ where an InstanceNorm input
+# is near constant. bf16: the ranks round activations to bf16 at other
+# points than the one process (fp32 partial sums, resizes rounded once:
+# phase 14's logits used 0.87 of TOL["bfloat16"]), and a rounding flip
+# moves a gradient element by up to ulp(2^-8) of its size along the
+# backward: 5e-2 of ‖g‖; the biases with an exact gradient of 0 get noise
+# of about 1e-3 of the model's largest gradient. Norm: 1e-4 (fp32), 2e-2
+MP_TRAIN_TOL = {"float32": (1e-2, 1e-6, 1e-4), "bfloat16": (5e-2, 1e-3, 2e-2)}
+MP_TRAINER_STEPS = 2
 
 
 def log(msg):
@@ -355,7 +410,7 @@ def within(got, want, dtype_name):
 def check_attention(ac):
     dev = torch.device("cuda")
     rows, ok = [], True
-    for shape in ATTN_MAIN_SHAPES + ATTN_TEST_SHAPES + ATTN_SHARDED_SHAPES:
+    for shape in ATTN_MAIN_SHAPES + ATTN_TEST_SHAPES + ATTN_SHARDED_SHAPES + ATTN_TRAIN_SHAPES:
         bw, h, n, d = shape
         g = torch.Generator(device=dev).manual_seed(SEED)
         q, k, v = (torch.randn(shape, device=dev, generator=g) for _ in range(3))
@@ -406,7 +461,7 @@ def check_dwconv(dc):
     bias add it replaces (`out + b`, bf16)."""
     dev = torch.device("cuda")
     rows, ok = [], True
-    for shape in DW_MAIN_SHAPES + [(2, 6, 5, 7, 96)] + DW_SHARDED_SHAPES:
+    for shape in DW_MAIN_SHAPES + [(2, 6, 5, 7, 96)] + DW_SHARDED_SHAPES + DW_TRAIN_SHAPES:
         g = torch.Generator(device=dev).manual_seed(SEED)
         x = torch.randn(shape, device=dev, generator=g)
         c = shape[-1]
@@ -1773,8 +1828,320 @@ def run_model_parallel():
     return failed, launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: model-parallel training
+# --------------------------------------------------------------------------- #
+
+
+def flagship_train_batch(side):
+    """Phase 15's batch: one channels-last volume of side³, phase 10b's kind
+    (unit normal plus the tumour mask) with its concentric labels."""
+    from waveformer_tpu_torch.tools.synthetic_cases import tumour_labels
+
+    seg = tumour_labels((side,) * 3, side * 40 // 128).astype(np.int32)[None, ..., None]
+    data = np.random.default_rng(SEED).standard_normal((1, side, side, side, 4))
+    return (data + (seg > 0)).astype(np.float32), seg
+
+
+def digest(tensors):
+    """A SHA-256 of the tensors' bytes, in order (bit-equality across ranks)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_two_steps(mesh, dtype_name, side, workdir, tag):
+    """Two steps of the flagship at side³ in `dtype_name` on `mesh` (None:
+    one process): step 1's metrics and launches, the fp32 peak over it,
+    step 2's seconds, the collectives' bytes, the assembly's device ms, a
+    digest of the masters after; step 1's gradients to `workdir` (rank 0)."""
+    from waveformer_tpu_torch.config import Config
+    from waveformer_tpu_torch.models import create_waveformer
+    from waveformer_tpu_torch.parallel import shard_batch, shard_model
+    from waveformer_tpu_torch.training.losses import dice_ce_loss
+    from waveformer_tpu_torch.training.state import (
+        TrainState, make_optimizer, make_train_step, master_params)
+    from waveformer_tpu_torch.training.trainer import step_seed
+
+    cfg = dict(Config().network.model_kwargs(), img_size=(side,) * 3)
+    model = create_waveformer(cfg, device="cuda", seed=SEED).train()
+    state = TrainState.create(master_params(model, getattr(torch, dtype_name)),
+                              make_optimizer(lr=1e-4))
+    if mesh is not None:
+        shard_model(model, mesh)
+    step = make_train_step(model, dice_ce_loss, mesh)
+    grads = []
+    apply = state.apply_gradients
+    state.apply_gradients = lambda g: (grads.append([t.detach().cpu() for t in g]), apply(g))[1]
+    data, seg = flagship_train_batch(side)
+    if mesh is not None:
+        data, seg = shard_batch(mesh, data), shard_batch(mesh, seg)
+    batch = {"data": torch.from_numpy(np.ascontiguousarray(data)).cuda(),
+             "seg": torch.from_numpy(np.ascontiguousarray(seg)).cuda()}
+    gen = torch.Generator(device="cuda")
+    traffic = (0, 0) if mesh is None else (mesh.traffic.bytes, mesh.traffic.backward_bytes)
+    out = {"metrics": []}
+    for i in range(2):
+        gen.manual_seed(step_seed(SEED, i))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counter_snapshot()
+        t0 = time.time()
+        _, m = step(state, batch, gen)
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+        seconds = time.time() - t0
+        after = counter_snapshot()
+        if i == 0:
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["launches"] = {k: {d: n - before["designs"][k][d]
+                                   for d, n in after["designs"][k].items()}
+                               for k in ("window_attention", "dwconv3")}
+            if mesh is not None:
+                out["forward_bytes"] = mesh.traffic.bytes - traffic[0]
+                out["backward_bytes"] = mesh.traffic.backward_bytes - traffic[1]
+        out["step_s"] = seconds
+    reducer = step.reducer
+    if reducer is not None:
+        out["assembly_ms"] = {line: reducer.device_ms(line) for line in ("spatial", "tensor")}
+        out["assembly_bytes"] = dict(reducer.bytes)
+    out["masters_digest"] = digest(state.params.values())
+    if mesh is None or mesh.is_main:
+        torch.save(dict(zip(state.params, grads[0])),
+                   os.path.join(workdir, f"grads_{tag}_{dtype_name}_{side}.pt"))
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def child_mp_training(rank, world, workdir):
+    """15a-b, one rank (or the one process, at world 1 without a group): the
+    runs of `workdir/spec.json` on its mesh, then at spatial=2 15c-d
+    (`mp_trainers`) on the tree in `workdir`."""
+    from waveformer_tpu_torch.ops import _build
+    from waveformer_tpu_torch.parallel import MeshSpec, make_mesh
+
+    _build.LIBRARIES.build_all()
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec, runs, tag = json.load(f)
+    if world > 1:
+        child_join("mpt", workdir, "gloo")
+    try:
+        mesh = make_mesh(MeshSpec(*spec)) if world > 1 else None
+        out = {"coords": (0, 0, 0) if mesh is None else mesh.coords}
+        for dtype_name, side in runs:
+            out[dtype_name, side] = train_two_steps(mesh, dtype_name, side, workdir, tag)
+        if os.path.isdir(os.path.join(workdir, "fullres")):
+            out["trainers"] = mp_trainers(rank, mesh, workdir)
+        torch.save(out, os.path.join(workdir, f"mpt_rank{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def grad_shares(got, want, rtol, floor):
+    """Each parameter's ‖Δg‖ as a share of rtol·‖g‖ + floor·max|g|·√n."""
+    scale = max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k].double() - w.double()).norm())
+            / (rtol * float(w.double().norm()) + floor * scale * w.numel() ** 0.5)
+            for k, w in want.items()}
+
+
+def mp_trainers(rank, mesh, workdir):
+    """15c-d, one rank of spatial=2: `Trainer(mesh=...)` on the tree in
+    `workdir`, its checkpoint reloaded by a second trainer, then
+    `SSLTrainer(mesh=...)` and the same steps without a mesh."""
+    from waveformer_tpu_torch.config import Config
+    from waveformer_tpu_torch.data.dataset import MedicalDataset
+    from waveformer_tpu_torch.models import create_waveformer
+    from waveformer_tpu_torch.models.ssl import create_ssl_vit
+    from waveformer_tpu_torch.training.ssl import SSLTrainer
+    from waveformer_tpu_torch.training.trainer import Trainer
+
+    fullres = os.path.join(workdir, "fullres")
+    names = sorted(f[:-4] for f in os.listdir(fullres) if f.endswith(".npz"))
+    train_ds = MedicalDataset(fullres, names[:3], unpack=False)
+    val_ds = MedicalDataset(fullres, names[3:], unpack=False)
+    kw = dict(batch_size=2, val_every=1, num_steps_per_epoch=MP_TRAINER_STEPS,
+              val_patches_per_epoch=2, patch_size=(128, 128, 128),
+              logdir=os.path.join(workdir, "logs"), num_workers=0, seed=SEED, mesh=mesh,
+              full_val_every=1, full_val_cases=1, compute_dtype=torch.bfloat16)
+    kernels = counter_snapshot()
+    model = create_waveformer(Config().network.model_kwargs(), device="cuda", seed=SEED)
+    t0 = time.time()
+    trainer = Trainer(model, max_epochs=1, resume=False, **kw)
+    trainer.train(train_ds, val_ds)
+    torch.cuda.synchronize()
+    out = {"coords": mesh.coords, "trainer_s": time.time() - t0,
+           "epoch_times": trainer.epoch_times, "best": trainer.best_mean_dice,
+           "first": digest(trainer.state.params.values()),
+           "assembly_ms": {line: trainer._train_step.reducer.device_ms(line)
+                           for line in ("spatial",)}}
+    after = counter_snapshot()
+    out["launches"] = {k: after[k] - kernels[k] for k in ("window_attention", "dwconv3")}
+    if mesh.is_main:
+        trainer.ckpt.save_state(trainer.state, trainer.epoch)
+    mesh.barrier()
+    del trainer, model
+    torch.cuda.empty_cache()
+    model = create_waveformer(Config().network.model_kwargs(), device="cuda",
+                              seed=SEED + 1 + rank)
+    again = Trainer(model, max_epochs=1, resume=True, **kw)
+    again.train(train_ds, val_ds)
+    out["reloaded"] = digest(again.state.params.values())
+    out["reloaded_step"] = again.global_step
+    del again, model
+    torch.cuda.empty_cache()
+
+    gt = np.random.default_rng(SEED).standard_normal(
+        (2, *SSL_STEP_CONFIG["img_size"], SSL_STEP_CONFIG["in_channels"])).astype(np.float32)
+    ssl = {}
+    for key, m in (("mesh", mesh), ("no_mesh", None)):
+        model = create_ssl_vit(device="cuda", seed=SEED, **SSL_STEP_CONFIG)
+        # two steps: the warm-up's first has lr 0
+        trainer = SSLTrainer(model, num_steps=2, lr=1e-4, warmup_steps=1, eval_every=10,
+                             logdir=os.path.join(workdir, f"ssl_{key}_{rank}"), seed=SEED,
+                             mesh=m)
+        trainer.train(iter([gt, gt]))
+        ssl[key] = {k: v.detach().cpu() for k, v in trainer.state.params.items()}
+    out["ssl_digest"] = digest(ssl["mesh"].values())
+    out["ssl_max_abs_err"] = max(float((ssl["mesh"][k] - ssl["no_mesh"][k]).abs().max())
+                                 for k in ssl["mesh"])
+    out["ssl_equal_no_mesh"] = all(torch.equal(ssl["mesh"][k], ssl["no_mesh"][k])
+                                   for k in ssl["mesh"])
+    return out
+
+
+def check_mp_trainers(ranks, launches):
+    """15c-d's gates on each rank's `mp_trainers` result; adds the ranks'
+    launches to `launches`. Returns (ok, the row's entry)."""
+    # each rank: the steps' and one validation batch's forwards; rank 0
+    # also the full-volume validation's, on the unsharded copy
+    forwards = MP_TRAINER_STEPS + 1
+    per_rank = [r["launches"] for r in ranks]
+    for r in per_rank:
+        for k in launches:
+            launches[k] += r[k]
+    c_ok = (len({r["first"] for r in ranks}) == 1
+            and all(r["reloaded"] == r["first"] for r in ranks)
+            and all(r["reloaded_step"] == MP_TRAINER_STEPS for r in ranks)
+            and per_rank[1] == {"window_attention": 14 * forwards, "dwconv3": 10 * forwards}
+            and per_rank[0]["window_attention"] > 14 * forwards)
+    d_ok = (len({r["ssl_digest"] for r in ranks}) == 1
+            and all(r["ssl_max_abs_err"] <= TRAIN_STEP_TOL["master_abs"] for r in ranks))
+    entry = {
+        "trainer": {"ok": bool(c_ok), "rank_trainer_s": [r["trainer_s"] for r in ranks],
+                    "epoch_times": ranks[0]["epoch_times"], "steps": MP_TRAINER_STEPS,
+                    "masters_equal_across_ranks": len({r["first"] for r in ranks}) == 1,
+                    "reloaded_equal": [r["reloaded"] == r["first"] for r in ranks],
+                    "launches": per_rank, "best_mean_dice": ranks[0]["best"],
+                    "assembly_ms": ranks[0]["assembly_ms"]},
+        "ssl_trainer": {"ok": bool(d_ok),
+                        "masters_equal_across_ranks": len({r["ssl_digest"] for r in ranks}) == 1,
+                        "max_abs_err_vs_no_mesh": [r["ssl_max_abs_err"] for r in ranks],
+                        "equal_to_no_mesh": [r["ssl_equal_no_mesh"] for r in ranks],
+                        "tolerance": TRAIN_STEP_TOL["master_abs"]}}
+    return c_ok and d_ok, entry
+
+
+def run_model_parallel_training():
+    """Phase 15: the one process's runs in a child, then (a) spatial=2, with
+    (c)-(d) the trainers in the same ranks, and (b) tensor=3, over gloo on
+    the one card. Returns (failed sub-phases, the attention and stencil
+    launches of the children)."""
+    failed, launches = [], {"window_attention": 0, "dwconv3": 0}
+    t_phase = time.time()
+    designs = {"float32": {"window_attention": {"fma": 14, "tma_wgmma": 0},
+                           "dwconv3": {"vector": 10, "tma_ring": 0}},
+               "bfloat16": {"window_attention": {"fma": 0, "tma_wgmma": 14},
+                            "dwconv3": {"vector": 0, "tma_ring": 10}}}
+    runs = sorted({run for _, rs in MP_TRAIN_RUNS.values() for run in rs})
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump([(1, 1, 1), runs, "one"], f)
+        t0 = time.time()
+        ok, (one,) = spawn_ranks("mpt", 1, root)
+        row = {"check": "mp_training_one_process", "wall_s": time.time() - t0, "ok": bool(ok)}
+        if ok:
+            row["runs"] = {f"{d}_{n}": {k: one[d, n][k] for k in
+                                        ("metrics", "step_s", "peak_bytes", "launches")}
+                           for d, n in runs}
+        log(json.dumps(row))
+        if not ok:
+            return ["mp_training_one_process"], launches
+        want = {run: torch.load(os.path.join(root, f"grads_one_{run[0]}_{run[1]}.pt"))
+                for run in runs}
+        for run in runs:
+            for k in launches:
+                launches[k] += sum(one[run]["launches"][k].values())
+    for sub, (spec, sub_runs) in MP_TRAIN_RUNS.items():
+        world = int(np.prod(spec))
+        with tempfile.TemporaryDirectory() as root:
+            with open(os.path.join(root, "spec.json"), "w") as f:
+                json.dump([spec, sub_runs, sub], f)
+            if spec[1] > 1:  # 15c-d in the same ranks, on phase 10c's kind of tree
+                from waveformer_tpu_torch.tools import synthetic_cases
+
+                synthetic_cases.write_training_cases(os.path.join(root, "fullres"), n=4,
+                                                     shape=CASE_SHAPE[1:], seed=SEED)
+            t0 = time.time()
+            ok, ranks = spawn_ranks("mpt", world, root)
+            row = {"check": f"mp_training_{sub}", "mesh": dict(zip(("data", "spatial", "tensor"),
+                                                                   spec)),
+                   "ranks": world, "backend": "gloo", "wall_s": time.time() - t0}
+            for dtype_name, side in (sub_runs if ok else ()):
+                run = (dtype_name, side)
+                got = torch.load(os.path.join(root, f"grads_{sub}_{dtype_name}_{side}.pt"))
+                rtol, floor, norm_tol = MP_TRAIN_TOL[dtype_name]
+                shares = grad_shares(got, want[run], rtol, floor)
+                worst = max(shares, key=shares.get)
+                (l1, n1), (l0, n0) = ranks[0][run]["metrics"][0], one[run]["metrics"][0]
+                rs = [r[run] for r in ranks]
+                for r in rs:
+                    for k in launches:
+                        launches[k] += sum(r["launches"][k].values())
+                peaks = [r["peak_bytes"] for r in rs]
+                entry = {
+                    "side": side, "worst_grad_share": shares[worst], "worst_grad_param": worst,
+                    "grad_tol": [rtol, floor], "loss": [l0, l1], "grad_norm": [n0, n1],
+                    "grad_norm_rel_err": abs(n1 - n0) / n0, "grad_norm_tol": norm_tol,
+                    "masters_equal_across_ranks": len({r["masters_digest"] for r in rs}) == 1,
+                    "launches_per_step": rs[0]["launches"],
+                    "rank_step_s": [r["step_s"] for r in rs],
+                    "one_process_step_s": one[run]["step_s"],
+                    "rank_forward_bytes": [r["forward_bytes"] for r in rs],
+                    "rank_backward_bytes": [r["backward_bytes"] for r in rs],
+                    "rank_assembly_bytes": [r["assembly_bytes"] for r in rs],
+                    "rank_assembly_ms": [r["assembly_ms"] for r in rs],
+                    "rank_peak_bytes": peaks, "one_process_peak_bytes": one[run]["peak_bytes"],
+                    "peak_ratio": max(peaks) / one[run]["peak_bytes"]}
+                good = (shares[worst] <= 1.0 and entry["grad_norm_rel_err"] <= norm_tol
+                        and np.isfinite(l1) and entry["masters_equal_across_ranks"]
+                        and all(r["launches"] == designs[dtype_name] for r in rs))
+                if spec[1] > 1 and dtype_name == "float32":
+                    entry["peak_ratio_limit"] = MODEL_PARALLEL_PEAK_RATIO
+                    good &= entry["peak_ratio"] <= MODEL_PARALLEL_PEAK_RATIO
+                entry["ok"] = bool(good)
+                row[f"{dtype_name}_{side}"] = entry
+                ok &= good
+            if ok and spec[1] > 1:
+                trainers_ok, row["trainers"] = check_mp_trainers(
+                    [r["trainers"] for r in ranks], launches)
+                ok &= trainers_ok
+            row["ok"] = bool(ok)
+            log(json.dumps(row))
+            if not ok:
+                failed.append(f"mp_training_{sub}")
+    log(json.dumps({"check": "mp_training_phase", "seconds": time.time() - t_phase,
+                    "launches": launches, "failed": failed}))
+    return failed, launches
+
+
 CHILDREN = {"dp": child_dp_steps, "predict": child_sharded_predict,
-            "multihost": child_multihost, "mp": child_model_parallel}
+            "multihost": child_multihost, "mp": child_model_parallel,
+            "mpt": child_mp_training}
 
 
 def free_port():
@@ -2363,10 +2730,11 @@ def main():
     failed += parallel_failed
     for name, n in parallel_launches.items():
         launches[name] += n
-    mp_failed, mp_launches = run_model_parallel()
-    failed += mp_failed
-    for name, n in mp_launches.items():
-        launches[name] += n
+    for run in (run_model_parallel, run_model_parallel_training):
+        mp_failed, mp_launches = run()
+        failed += mp_failed
+        for name, n in mp_launches.items():
+            launches[name] += n
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")

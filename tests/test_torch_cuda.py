@@ -983,3 +983,55 @@ class TestModelParallelKernelsOnCard:
             s = slice(h0, h0 + heads)
             got = tac.window_attention(q[:, s], k[:, s], v[:, s], b[s], d**-0.5)
             assert torch.equal(got, whole[:, s])
+
+    @pytest.mark.parametrize("shape", SLAB_SHAPES)
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_stencil_backward_on_halo_slab_equals_whole_volume(self, cuda_device, shape, dtype,
+                                                               rtol, atol):
+        """The halo slabs' backwards (the plain 27-tap composition) summed
+        over 2 ranks, each halo plane's gradient added to its neighbour's
+        edge plane as the halo's backward does: the whole call's input,
+        kernel and bias gradients, up to the sums' order."""
+        x = torch.randn(shape, device=cuda_device).to(dtype)
+        k = torch.randn(3, 3, 3, shape[-1], device=cuda_device)
+        b = torch.randn(shape[-1], device=cuda_device)
+        g = torch.randn(shape, device=cuda_device).to(dtype)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_(True) for t in (x, k, b)]
+            (fn(*leaves).float() * g.float()).sum().backward()
+            return [t.grad.float() for t in leaves]
+
+        def slabs(xx, kk, bb):
+            padded = torch.nn.functional.pad(xx, (0, 0, 0, 0, 0, 0, 1, 1))
+            dl = shape[1] // 2
+            return torch.cat([tdc.dwconv3(padded[:, r * dl:(r + 1) * dl + 2].contiguous(), kk,
+                                          bb)[:, 1:-1] for r in range(2)], dim=1)
+
+        for got, want in zip(grads(slabs), grads(tdc.dwconv3)):
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol * float(want.abs().max()))
+
+    @pytest.mark.parametrize("full,heads", HEAD_SUBSETS)
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_window_attention_backward_on_head_subset(self, cuda_device, full, heads, dtype,
+                                                      rtol, atol):
+        """A tensor rank's backward on its heads (the plain composition)
+        equals those heads' gradients of the full call's backward."""
+        bw, h, n, d = full
+        ins = [torch.from_numpy(a).to(cuda_device) for a in _qkvb(bw, h, n, d)]
+        ins = [t.to(dtype) for t in ins[:3]] + [ins[3]]
+        g = torch.randn(bw, h, n, d, device=cuda_device).to(dtype)
+
+        def grads(heads_slice):
+            leaves = [t[:, heads_slice].clone().requires_grad_(True) for t in ins[:3]]
+            leaves.append(ins[3][heads_slice].clone().requires_grad_(True))
+            out = tac.window_attention(*leaves, d**-0.5)
+            (out.float() * g[:, heads_slice].float()).sum().backward()
+            return [t.grad.float() for t in leaves]
+
+        whole = grads(slice(None))
+        for h0 in range(0, h, heads):
+            s = slice(h0, h0 + heads)
+            for got, want in zip(grads(s), [w[:, s] for w in whole[:3]] + [whole[3][s]]):
+                torch.testing.assert_close(got, want, rtol=rtol,
+                                           atol=atol * float(want.abs().max()))

@@ -302,15 +302,23 @@ def _fake_mesh(spec, data_rank=0, spatial_rank=0, tensor_rank=0):
 
 @pytest.mark.parametrize("spec", [(1, 2, 1), (1, 1, 2), (2, 2, 2)])
 @pytest.mark.parametrize("entry", ["Trainer", "SSLTrainer", "make_train_step", "make_ssl_step"])
-def test_training_refuses_model_parallel_meshes(spec, entry, tmp_path):
+def test_training_builds_on_model_parallel_meshes(spec, entry, tmp_path):
+    """The training entry points take every (data, spatial, tensor) mesh
+    that `shard_model` takes (their steps on such meshes:
+    tests/test_torch_train_model_parallel.py)."""
     mesh = _fake_mesh(spec)
     model = torch.nn.Linear(2, 2)
     make = {"Trainer": lambda: Trainer(model, logdir=str(tmp_path), mesh=mesh),
             "SSLTrainer": lambda: SSLTrainer(model, logdir=str(tmp_path), mesh=mesh),
-            "make_train_step": lambda: make_train_step(model, tl.dice_ce_loss, mesh),
+            "make_train_step": lambda: make_train_step(
+                shard_model(create_waveformer(TOY, device="cpu", seed=0), mesh),
+                tl.dice_ce_loss, mesh),
             "make_ssl_step": lambda: make_ssl_step(model, mesh=mesh)}
-    with pytest.raises(NotImplementedError, match="data mesh"):
-        make[entry]()
+    built = make[entry]()
+    if entry.startswith("make_"):
+        assert built.reducer is not None and built.reducer.mesh is mesh
+    else:
+        assert built.mesh is mesh
 
 
 def test_data_meshes_still_build_the_trainer_step():

@@ -7,7 +7,9 @@ the reference's nonstandard strides (3w−1 for depth, 2w−1 for height,
 Every call goes through `ops.attention_cuda.window_attention`. With a
 `tensor_shard` (`parallel/model_parallel.py::shard_model`) the module holds
 the q, k and v rows of its rank's heads and a row-parallel `proj`
-(`parallel/tensor_sharding.py`), and the kernel runs on those heads.
+(`parallel/tensor_sharding.py`), and the kernel runs on those heads; its
+input and the bias table enter through `AxisShard.copy`, so their
+gradients are the whole line's.
 """
 
 from __future__ import annotations
@@ -86,12 +88,17 @@ class WindowAttention(nn.Module):
         n = self.window_size**3
         h0, h = self.heads()
         idx = self.relative_position_index.reshape(-1)
-        table = self.relative_position_bias_table.float()[:, h0:h0 + h]
+        table = self.relative_position_bias_table
+        if self.tensor_shard is not None:
+            table = self.tensor_shard.copy(table)
+        table = table.float()[:, h0:h0 + h]
         return table[idx].reshape(n, n, h).permute(2, 0, 1).contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         _, h = self.heads()
+        if self.tensor_shard is not None:
+            x = self.tensor_shard.copy(x)
         qkv = self.qkv(x).reshape(b, n, 3, h, self.head_dim).permute(2, 0, 3, 1, 4)
         out = window_attention(qkv[0], qkv[1], qkv[2], self.bias(), self.scale)
         out = out.transpose(1, 2).reshape(b, n, h * self.head_dim)

@@ -96,7 +96,9 @@ class DropPath(nn.Module):
     Under data parallelism (`shard_drop_path`) rank r of W holds rows
     [r·b, (r+1)·b) of a global batch of W·b: it draws the global batch's
     masks from the same generator and keeps its own rows, so the ranks
-    together drop what one process would drop on the whole batch."""
+    together drop what one process would drop on the whole batch. The
+    spatial and tensor ranks of a data row take the row's data coordinate
+    and a generator seeded alike, so they draw the same masks."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()

@@ -21,8 +21,9 @@ class CCF_FFN(nn.Module):
     The residual is inside the FFN; the block adds a second one. Both
     LayerNorms use eps 1e-5 (torch defaults in the reference). With a
     `tensor_shard` the hidden channels are this rank's slice: `pwconv`
-    column-parallel, the norms' statistics summed over the line, `fc`
-    row-parallel (`parallel/tensor_sharding.py`)."""
+    column-parallel on the input through `AxisShard.copy`, the norms'
+    statistics summed over the line, `fc` row-parallel
+    (`parallel/tensor_sharding.py`)."""
 
     tensor_shard = None  # this rank's `tensor` line, set by `shard_model`
 
@@ -42,7 +43,7 @@ class CCF_FFN(nn.Module):
             h = gelu(self.norm1(self.pwconv(x)))
             h = gelu(self.norm2(self.dwconv(h)))
             return x + self.fc(h)
-        h = gelu(tensor_sharding.layer_norm(self.pwconv(x), self.norm1, t))
+        h = gelu(tensor_sharding.layer_norm(self.pwconv(t.copy(x)), self.norm1, t))
         h = gelu(tensor_sharding.layer_norm(self.dwconv(h), self.norm2, t))
         return x + tensor_sharding.row_parallel_linear(h, self.fc, t)
 

@@ -16,7 +16,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint as _checkpoint
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from waveformer_tpu_torch.device import resolve_device
 from waveformer_tpu_torch.models.attention import WindowAttention
@@ -30,6 +31,15 @@ from waveformer_tpu_torch.models.conv_blocks import (
 )
 from waveformer_tpu_torch.models.decoder import UnetrIDWTBlock
 from waveformer_tpu_torch.models.layers import PatchMerging, ProjectionUpsample
+
+
+def checkpoint(fn, *args):
+    """`fn(*args)` under activation checkpointing, recomputed whole in the
+    backward: on a model-parallel mesh the recomputation runs the
+    forward's collectives again, and every rank of a line must run all of
+    them (an early stop after the last saved tensor could differ)."""
+    with set_checkpoint_early_stop(False):
+        return _checkpoint(fn, *args, use_reentrant=False)
 
 
 class MultiscaleTransformer(nn.Module):
@@ -86,14 +96,14 @@ class MultiscaleTransformer(nn.Module):
         recomputation in the backward restores the generator's state first,
         so it draws the forward's drop-path masks again."""
         if generator is None:
-            return checkpoint(blk, h, use_reentrant=False)
+            return checkpoint(blk, h)
         state = generator.get_state()
 
         def run(x):
             generator.set_state(state)
             return blk(x, generator)
 
-        return checkpoint(run, h, use_reentrant=False)
+        return checkpoint(run, h)
 
     def forward(self, x: torch.Tensor, normalize: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -213,7 +223,7 @@ class Waveformer(nn.Module):
 
     def _run(self, mod: nn.Module, *args):
         if self.use_checkpoint and torch.is_grad_enabled():
-            return checkpoint(mod, *args, use_reentrant=False)
+            return checkpoint(mod, *args)
         return mod(*args)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:

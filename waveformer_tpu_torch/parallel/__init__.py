@@ -22,8 +22,8 @@ from waveformer_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     MeshSpec,
     axis_lines,
-    check_data_only,
     default_mesh_for_batch,
+    depth_slab,
     init_distributed,
     make_mesh,
     mesh_coords,

@@ -16,16 +16,18 @@ distributed mechanisms:
     `light_training/trainer.py:354`), JAX's formula;
   * `shard_cases_for_eval` — the sampler's pad-and-slice, exactly as JAX;
   * `AxisShard` — this process's line of a model-parallel axis (`spatial`
-    or `tensor`), whose all-reduces a sharded forward counts in `Traffic`.
+    or `tensor`), whose all-reduces a sharded forward and its backward
+    count in `Traffic`.
 
-Gradients. Every rank runs its own autograd, and a collective's backward
+Gradients on the data axis. Every rank runs its own autograd, and a collective's backward
 sums the cotangents that every rank's copy of the loss sends back
 (`all_reduce` of the cotangents): the gradient of Σ_r L_r, where L_r is
 rank r's loss. The data-parallel step (`training/state.py`) averages the
 ranks' gradients, so it takes the gradient of the mean over ranks of L_r:
 the global batch's loss, whether L_r is a local mean (each rank's own rows)
 or a value every rank computes alike through these collectives (global
-batch dice, NT-Xent over the gathered embeddings).
+batch dice, NT-Xent over the gathered embeddings). The model-parallel
+lines follow another convention, Megatron's (`AxisShard`).
 
 Only `all_reduce` and `broadcast` are used: they take the same form under
 NCCL and gloo, on CPU and CUDA tensors (two ranks on one card run gloo,
@@ -172,37 +174,141 @@ def shard_cases_for_eval(n_cases: int, n_shards: int) -> Tuple[np.ndarray, int]:
 @dataclasses.dataclass
 class Traffic:
     """What the model-parallel collectives of a mesh moved: the bytes of
-    the buffers this rank handed to `all_reduce`."""
+    the buffers this rank handed to `all_reduce`, in forwards (`bytes`)
+    and in backwards (`backward_bytes`)."""
 
     bytes: int = 0
+    backward_bytes: int = 0
+
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _own(g: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of a cotangent, to sum in place."""
+    return g.clone(memory_format=torch.contiguous_format)
+
+
+class _LineSum(torch.autograd.Function):
+    """Σ over a line, in place; the backward sums the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        ctx.mark_dirty(x)
+        return shard._reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard._reduce(_own(g), backward=True), None
+
+
+class _LineReduce(torch.autograd.Function):
+    """Σ over a line, in place; the backward passes the cotangent on
+    (Megatron's `reduce_from_tensor_model_parallel_region`)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.mark_dirty(x)
+        return shard._reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _LineCopy(torch.autograd.Function):
+    """Identity; the backward sums the cotangents over the line
+    (Megatron's `copy_to_tensor_model_parallel_region`)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard._reduce(_own(g), backward=True), None
 
 
 @dataclasses.dataclass(frozen=True)
 class AxisShard:
     """This process's line of a model-parallel mesh axis (`spatial` or
     `tensor`): the line's group, this rank's coordinate on it and its
-    length. Its collectives sum in place and are counted in `traffic`.
-    They have no backward: a sharded forward serves (training under these
-    axes is not ported), and one that autograd records raises."""
+    length. Every collective is an all-reduce, counted in `traffic`.
+
+    Gradients. The loss of a data row is one value that every rank of the
+    row holds alike, and each rank's backward takes its share of that one
+    loss's gradient (Megatron's convention). A collective's backward
+    therefore depends on what its result feeds:
+
+      * `sum` and `gather`: every rank uses its copy for its own work (its
+        slab's halo, the statistics that normalise its slab, its heads'
+        slice of a LayerNorm), so each rank's cotangent is a partial one
+        and the backward sums them over the line;
+      * `reduce` and `gather(replicated=True)`: the result feeds work that
+        every rank repeats alike and that ends in the loss (a row-parallel
+        output, the loss's volume sums, the top-k over the whole volume),
+        so every rank already holds the whole cotangent and the backward
+        passes it on; a sum there would multiply the path's gradient by
+        the line's length;
+      * `copy`: a value every rank holds alike (the input of a
+        column-parallel product) feeds each rank's own work; identity
+        forward, the cotangents summed backward.
+
+    Then a parameter that every rank of the line holds has, on each rank,
+    its share of the gradient when the rank's work differs (a slab: the
+    shares are summed over the `spatial` line) and the whole gradient when
+    the work is repeated (equal on each `tensor` rank), and a sliced
+    parameter its slice's gradient (`training/state.py` assembles them).
+    Every rank of a line must run the same collectives in the same order,
+    in the forward and in the backward; autograd runs a graph's nodes in
+    the reverse of their creation, so the same module code on every rank
+    keeps that order. Where autograd records nothing, every collective
+    sums in place and `copy` is the identity (the serving forward)."""
 
     group: dist.ProcessGroup
     rank: int
     size: int
     traffic: Traffic
 
-    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
-        """Σ over the line, in place in `x` (a contiguous tensor the caller
-        owns); returns x."""
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "the spatial and tensor axes shard only a forward without gradients")
-        self.traffic.bytes += x.numel() * x.element_size()
+    def _reduce(self, x: torch.Tensor, backward: bool = False) -> torch.Tensor:
+        n = x.numel() * x.element_size()
+        if backward:
+            self.traffic.backward_bytes += n
+        else:
+            self.traffic.bytes += n
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over the line, in place in `x` (a contiguous tensor the caller
+        owns), outside autograd (the serving forward); returns x."""
+        if _records(x):
+            raise NotImplementedError("all_reduce_ has no backward: use sum or reduce")
+        return self._reduce(x)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over the line of x (a contiguous tensor the caller owns, summed
+        in place); the backward sums the cotangents."""
+        return _LineSum.apply(x, self) if _records(x) else self.all_reduce_(x)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over the line of x (as `sum`) for work every rank repeats; the
+        backward passes the cotangent on."""
+        return _LineReduce.apply(x, self) if _records(x) else self.all_reduce_(x)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """x itself, for each rank's own work; the backward sums the
+        cotangents."""
+        return _LineCopy.apply(x, self) if _records(x) else x
+
+    def gather(self, x: torch.Tensor, replicated: bool = False) -> torch.Tensor:
         """(size, *x.shape): every rank's x in line order (an all-reduce of
-        a zero-filled slot buffer, as `_gather`)."""
+        a zero-filled slot buffer, as `_gather`); its backward keeps this
+        rank's slot of the cotangents' sum, or with `replicated` of this
+        rank's own cotangent."""
         buf = x.new_zeros((self.size, *x.shape))
         buf[self.rank] = x
-        return self.all_reduce_(buf)
+        return self.reduce(buf) if replicated else self.sum(buf)

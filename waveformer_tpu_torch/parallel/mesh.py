@@ -22,11 +22,11 @@ CPU under gloo).
     `spatial` (the depth D of a volume, `parallel/spatial.py`) and `tensor`
     (Megatron slices of the attention and FFN, `parallel/tensor_sharding.py`)
     are `AxisShard`s that `parallel/model_parallel.py::shard_model` hands
-    to the model; they shard the serving forward only, and the trainers
-    raise for them (`check_data_only`).
+    to the model, for the serving forward and for training (the
+    collectives' backwards, `collectives.AxisShard`).
   * `shard_batch` keeps this rank's rows of a global batch, and its D slab
     when `spatial` > 1 (JAX's `batch_spec`); `replicate` broadcasts tensors
-    from rank 0 of the data line, in place.
+    from the rank at (0, 0, 0) to every rank, in place.
 
 Without an initialised group, `make_mesh()` is a mesh of one process with
 no group, on which nothing communicates.
@@ -83,6 +83,8 @@ class Mesh:
     tensor: Optional[AxisShard] = None
     # what the spatial and tensor collectives moved
     traffic: Traffic = dataclasses.field(default_factory=Traffic)
+    # every rank of the mesh (the data line's group on a data mesh)
+    world: Optional[dist.ProcessGroup] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -114,8 +116,8 @@ class Mesh:
     def barrier(self) -> None:
         """Wait for every rank (an all-reduce of one element on the
         collective device, which both backends carry)."""
-        if self.group is not None:
-            dist.all_reduce(torch.zeros(1, device=self.device), group=self.group)
+        if self.world is not None:
+            dist.all_reduce(torch.zeros(1, device=self.device), group=self.world)
 
 
 def init_distributed(
@@ -195,7 +197,7 @@ def make_mesh(spec: Optional[MeshSpec] = None,
         raise ValueError(f"mesh spec {spec.shape} needs {spec.size()} processes, "
                          f"got {world}")
     if spec.spatial == spec.tensor == 1:
-        return Mesh(spec, rank, group, device)
+        return Mesh(spec, rank, group, device, world=group)
     lines = {}
     for a, axis in enumerate(spec.axis_names):
         if spec.shape[a] == 1:
@@ -208,16 +210,7 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     traffic = Traffic()
     shard = lambda axis, coord, n: AxisShard(lines[axis], coord, n, traffic) if n > 1 else None
     return Mesh(spec, d, lines.get("data"), device, spatial=shard("spatial", s, spec.spatial),
-                tensor=shard("tensor", t, spec.tensor), traffic=traffic)
-
-
-def check_data_only(mesh: Optional[Mesh], what: str) -> None:
-    """Raise unless `mesh` shards the batch alone: the `spatial` and
-    `tensor` axes shard the serving forward only (`shard_model`)."""
-    if mesh is not None and (mesh.spec.spatial > 1 or mesh.spec.tensor > 1):
-        raise NotImplementedError(
-            f"{what} takes a data mesh; mesh {mesh.shape} splits the model "
-            "(training under the spatial and tensor axes is not ported)")
+                tensor=shard("tensor", t, spec.tensor), traffic=traffic, world=group)
 
 
 def default_mesh_for_batch(batch_size: int) -> Mesh:
@@ -231,10 +224,27 @@ def default_mesh_for_batch(batch_size: int) -> Mesh:
     return mesh
 
 
-def shard_batch(mesh: Mesh, batch, depth_axis: int = 1):
+def depth_slab(mesh: Mesh, a, depth_axis: int = 1):
+    """This rank's planes of `a` (an array or tensor, or a dict of them)
+    along `depth_axis` when `spatial` > 1; `a` itself otherwise."""
+    if isinstance(a, dict):
+        return {k: depth_slab(mesh, v, depth_axis) for k, v in a.items()}
+    s = mesh.spatial
+    if s is None:
+        return a
+    d = a.shape[depth_axis]
+    if d % s.size:
+        raise ValueError(f"depth {d} does not split over {s.size} spatial ranks")
+    index = [slice(None)] * a.ndim
+    index[depth_axis] = slice(s.rank * d // s.size, (s.rank + 1) * d // s.size)
+    return a[tuple(index)]
+
+
+def shard_batch(mesh: Mesh, batch, depth_axis: Optional[int] = 1):
     """This rank's rows of a global batch (an array or tensor, or a dict of
     them) and, when `spatial` > 1, its planes along `depth_axis` (1 for
-    channels-last (B, D, H, W, C), 2 for (B, C, D, H, W))."""
+    channels-last (B, D, H, W, C), 2 for (B, C, D, H, W); None keeps every
+    plane)."""
     if isinstance(batch, dict):
         return {k: shard_batch(mesh, v, depth_axis) for k, v in batch.items()}
     n = batch.shape[0]
@@ -242,29 +252,23 @@ def shard_batch(mesh: Mesh, batch, depth_axis: int = 1):
         raise ValueError(f"global batch {n} does not split over {mesh.size} processes")
     b = n // mesh.size
     rows = batch[mesh.rank * b:(mesh.rank + 1) * b]
-    if mesh.spatial is None:
-        return rows
-    d, s = rows.shape[depth_axis], mesh.spatial
-    if d % s.size:
-        raise ValueError(f"depth {d} does not split over {s.size} spatial ranks")
-    index = [slice(None)] * rows.ndim
-    index[depth_axis] = slice(s.rank * d // s.size, (s.rank + 1) * d // s.size)
-    return rows[tuple(index)]
+    return rows if depth_axis is None else depth_slab(mesh, rows, depth_axis)
 
 
 def replicate(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
-    """Broadcast `tensors` from rank 0 in place (params, optimizer state),
-    one flat buffer per dtype and device; returns them."""
-    if mesh.group is None:
+    """Broadcast `tensors` from the rank at (0, 0, 0) to every rank of the
+    mesh in place (params, optimizer state), one flat buffer per dtype and
+    device; returns them."""
+    if mesh.world is None:
         return tensors
     by_kind: Dict[Tuple[torch.dtype, torch.device], list] = {}
     for t in tensors:
         by_kind.setdefault((t.dtype, t.device), []).append(t)
-    src = dist.get_global_rank(mesh.group, 0)
+    src = dist.get_global_rank(mesh.world, 0)
     with torch.no_grad():
         for ts in by_kind.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.broadcast(flat, src, group=mesh.group)
+            dist.broadcast(flat, src, group=mesh.world)
             for t, f in zip(ts, torch.split(flat, [t.numel() for t in ts])):
                 t.copy_(f.view_as(t))
     return tensors
@@ -274,7 +278,7 @@ def replicate(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> Sequence[torch.Ten
 def main_rank_first(mesh: Optional[Mesh]) -> Iterator[None]:
     """Rank 0 runs the body first (it may write files the others then read:
     the persisted split, unpacked cases); the other ranks run it after."""
-    if mesh is None or mesh.group is None:
+    if mesh is None or mesh.world is None:
         yield
         return
     if not mesh.is_main:

@@ -1,5 +1,5 @@
-"""`shard_model`: a `Waveformer` arranged for a forward on a mesh's
-`spatial` and `tensor` axes.
+"""`shard_model`: a `Waveformer` arranged for a forward, and its backward,
+on a mesh's `spatial` and `tensor` axes.
 
 The JAX package shards one forward by placing parameters and inputs
 (`shard_params_tensor`, `batch_spec`) and letting GSPMD partition the
@@ -17,7 +17,10 @@ logits (`spatial.gather_depth` joins them):
         y = model(torch.as_tensor(shard_batch(mesh, x)).to(device))
     logits = gather_depth(y, mesh.spatial)
 
-Without a spatial or tensor axis the model is left as it was.
+Without a spatial or tensor axis the model is left as it was. To train,
+take the fp32 masters first (`training.state.master_params`: full
+tensors on every rank, as JAX's replicated state), then shard the module
+(`Trainer(mesh=...)` does this in that order).
 """
 
 from __future__ import annotations
@@ -60,6 +63,14 @@ def _fit(m: nn.Module) -> None:
         m.normalized_shape = tuple(m.weight.shape)
 
 
+def is_sharded(model: nn.Module, mesh: Mesh) -> bool:
+    """Whether `shard_model(model, mesh)` armed `model` (always, on a mesh
+    without spatial and tensor lines)."""
+    lines = [(a, line) for a, line in (("depth_shard", mesh.spatial),
+                                       ("tensor_shard", mesh.tensor)) if line is not None]
+    return all(any(getattr(m, a, None) is line for m in model.modules()) for a, line in lines)
+
+
 def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Arm `model` (full weights, on this rank's device) for a forward on
     `mesh`: its tensor-parallel parameters become this rank's slices
@@ -69,10 +80,13 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     check_model_parallel(model, mesh)
     if mesh.tensor is not None:
         sliced = shard_params_tensor(mesh, model.state_dict())
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if sliced[name].shape != p.shape:
-                    p.data = sliced[name].to(p.device, p.dtype)
+        for name, p in list(model.named_parameters()):
+            if sliced[name].shape != p.shape:
+                # a new parameter: whoever holds the old one (the training
+                # masters) keeps the full tensor
+                owner, _, leaf = name.rpartition(".")
+                setattr(model.get_submodule(owner), leaf, nn.Parameter(
+                    sliced[name].to(p.device, p.dtype), requires_grad=p.requires_grad))
         for m in model.modules():
             _fit(m)
             if hasattr(m, "tensor_shard"):

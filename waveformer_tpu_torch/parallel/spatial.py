@@ -21,7 +21,12 @@ The rest of a forward is local: 1³ convs, LayerNorms, the k2 s2 patch
 embedding and transposed conv, `PatchMerging` and the Haar DWT/IDWT pair or
 stride within pairs of planes, which stay on one rank while every rank's
 offset and extent are even (`model_parallel.shard_model` checks the
-grids). Every collective is an all-reduce of an `AxisShard`.
+grids). Every collective is an all-reduce of an `AxisShard`, and every
+function here is differentiable: a halo's, a gather's and a statistic's
+backward sums the ranks' cotangents over the line (`AxisShard.sum`), so a
+slab's gradient takes the neighbours' share of its edge planes, a gathered
+grid's backward is a reduce-scatter, and a statistic's cotangent is the
+whole volume's.
 """
 
 from __future__ import annotations
@@ -60,12 +65,14 @@ def halo(x: torch.Tensor, shard: AxisShard, planes: int = 1) -> torch.Tensor:
     return torch.cat([below, x, above], dim=1)
 
 
-def gather_depth(x: torch.Tensor, shard: AxisShard, axis: int = 1) -> torch.Tensor:
+def gather_depth(x: torch.Tensor, shard: AxisShard, axis: int = 1,
+                 replicated: bool = False) -> torch.Tensor:
     """The whole volume from every rank's slab along `axis` (1 channels-last,
-    2 for (B, C, D, H, W)); x itself without a spatial axis."""
+    2 for (B, C, D, H, W)); x itself without a spatial axis. `replicated`:
+    every rank's work on the result is the same (`AxisShard.gather`)."""
     if shard is None:
         return x
-    g = shard.gather(x)
+    g = shard.gather(x, replicated)
     return torch.cat(list(g.unbind(0)), dim=axis)
 
 
@@ -76,7 +83,7 @@ def own_planes(x: torch.Tensor, shard: AxisShard) -> torch.Tensor:
 
 
 def _dhw_sum(x32: torch.Tensor, shard: AxisShard) -> torch.Tensor:
-    return shard.all_reduce_(x32.sum(dim=DHW, keepdim=True))
+    return shard.sum(x32.sum(dim=DHW, keepdim=True))
 
 
 def instance_norm(x: torch.Tensor, eps: float, shard: AxisShard) -> torch.Tensor:

@@ -23,6 +23,14 @@ weight (out, in), a conv kernel (..., in, out) a Conv3d weight (out, in,
     over the split hidden dim are fp32 sums over the line (`layer_norm`);
   * CCF_FFN `fc`: row-parallel, as `proj`;
   * everything else: replicated.
+
+In training, the input of `qkv` and `pwconv` and the bias table go
+through `AxisShard.copy` (identity forward, the cotangents summed
+backward), the row-parallel sums through `AxisShard.reduce` (the
+cotangent passed on) and the LayerNorm statistics through `AxisShard.sum`
+(see `collectives.AxisShard`). A sliced parameter's gradient is then its
+slice's, and `rows` says where the slice sits in the full tensor
+(`training/state.py` gathers them).
 """
 
 from __future__ import annotations
@@ -48,46 +56,48 @@ RULES = (
 )
 
 
-def _split_dim(key: str) -> Optional[int]:
+def split_dim(key: str) -> Optional[int]:
     return next((dim for suffix, dim in RULES if key.endswith(suffix)), None)
 
 
 def tensor_param_specs(model: nn.Module) -> Dict[str, Optional[int]]:
     """Every `state_dict` key of `model` → the dim its tensor splits over
     the `tensor` axis, or None (replicated)."""
-    return {k: _split_dim(k) for k in model.state_dict()}
+    return {k: split_dim(k) for k in model.state_dict()}
+
+
+def rows(key: str, n: int, rank: int, size: int) -> torch.Tensor:
+    """The indices along its split dim (of extent n) of tensor rank `rank`'s
+    slice of the parameter `key`."""
+    chunks = 3 if ".attn.qkv." in key else 1  # q, k and v, each split by head
+    if n % (chunks * size):
+        raise ValueError(f"{key}: {n} does not split over {size} tensor ranks")
+    c, w = n // chunks, n // chunks // size
+    return torch.cat([torch.arange(j * c + rank * w, j * c + (rank + 1) * w)
+                      for j in range(chunks)])
+
+
+def shard_tensor(key: str, v: torch.Tensor, t: Optional[AxisShard]) -> torch.Tensor:
+    """This rank's slice of the full parameter `key` (v itself where it is
+    replicated or there is no tensor line)."""
+    dim = split_dim(key)
+    if t is None or dim is None:
+        return v
+    return v.index_select(dim, rows(key, v.shape[dim], t.rank, t.size).to(v.device))
 
 
 def shard_params_tensor(mesh: Mesh, state_dict: Mapping[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
     """This rank's slices of a full `state_dict` on `mesh`'s tensor line
     (the state dict itself without one)."""
-    t: Optional[AxisShard] = mesh.tensor
-    if t is None:
-        return dict(state_dict)
-    out = {}
-    for k, v in state_dict.items():
-        dim = _split_dim(k)
-        if dim is None:
-            out[k] = v
-            continue
-        n = v.shape[dim]
-        chunks = 3 if ".attn.qkv." in k else 1  # q, k and v, each split by head
-        if n % (chunks * t.size):
-            raise ValueError(f"{k}: dim {dim} of {tuple(v.shape)} does not split over "
-                             f"{t.size} tensor ranks")
-        c, w = n // chunks, n // chunks // t.size
-        rows = torch.cat([torch.arange(j * c + t.rank * w, j * c + (t.rank + 1) * w)
-                          for j in range(chunks)]).to(v.device)
-        out[k] = v.index_select(dim, rows)
-    return out
+    return {k: shard_tensor(k, v, mesh.tensor) for k, v in state_dict.items()}
 
 
 def row_parallel_linear(x: torch.Tensor, linear: nn.Linear, shard: AxisShard) -> torch.Tensor:
     """`linear` of the whole input from this rank's slice of its features:
     the partial product in fp32, summed over the line, then the bias once;
     x's dtype."""
-    y = shard.all_reduce_(F.linear(x.float(), linear.weight.float()))
+    y = shard.reduce(F.linear(x.float(), linear.weight.float()))
     if linear.bias is not None:
         y = y + linear.bias.float()
     return y.to(x.dtype)
@@ -99,8 +109,8 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, shard: AxisShard) -> torch.T
     dtype."""
     x32 = x.float()
     n = x.shape[-1] * shard.size
-    mean = shard.all_reduce_(x32.sum(-1, keepdim=True)) / n
+    mean = shard.sum(x32.sum(-1, keepdim=True)) / n
     xc = x32 - mean
-    var = shard.all_reduce_((xc * xc).sum(-1, keepdim=True)) / n
+    var = shard.sum((xc * xc).sum(-1, keepdim=True)) / n
     y = xc * torch.rsqrt(var + norm.eps) * norm.weight.float() + norm.bias.float()
     return y.to(x.dtype)

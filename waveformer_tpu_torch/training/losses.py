@@ -19,6 +19,15 @@ dice of nnUNet's DDP `SoftDiceLoss` (`light_training/loss/dice.py:36-48`).
 Every rank then holds the same dice term, and the data-parallel step's
 mean over ranks of the gradients is that term's gradient (see
 `parallel/collectives.py`).
+
+Where JAX's GSPMD splits a volume's D over the mesh's `spatial` axis, the
+port's losses take `spatial`, this rank's line of it (an `AxisShard`), and
+logits and labels are this rank's D slab: every sum over the volume (the
+Dice statistics, the CE and BCE voxel sums) is summed over the line by
+`AxisShard.reduce`, whose backward passes the cotangent on, since every
+rank of the line computes the same loss from the sums; `topk_cross_entropy`
+gathers the per-voxel CE along D the same way before its top-k. The loss
+is then the whole volume's on every rank of the line.
 """
 
 from __future__ import annotations
@@ -29,7 +38,18 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from waveformer_tpu_torch.parallel.collectives import cross_replica_sum
+from waveformer_tpu_torch.parallel import spatial as depth
+from waveformer_tpu_torch.parallel.collectives import AxisShard, cross_replica_sum
+
+
+def _volume_sum(x: torch.Tensor, spatial: Optional[AxisShard]) -> torch.Tensor:
+    """x, sums over this rank's slab, summed over the spatial line."""
+    return x if spatial is None else spatial.reduce(x.contiguous())
+
+
+def _voxels(x: torch.Tensor, spatial: Optional[AxisShard]) -> int:
+    """Elements of x over the whole volume."""
+    return x.numel() * (1 if spatial is None else spatial.size)
 
 
 def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -42,7 +62,8 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 def softmax_cross_entropy(
-    logits: torch.Tensor, labels: torch.Tensor, weight: Optional[torch.Tensor] = None
+    logits: torch.Tensor, labels: torch.Tensor, weight: Optional[torch.Tensor] = None,
+    spatial: Optional[AxisShard] = None,
 ) -> torch.Tensor:
     """Mean CE over all voxels (torch `nn.CrossEntropyLoss` semantics)."""
     onehot = _one_hot(labels, logits.shape[-1])
@@ -50,7 +71,10 @@ def softmax_cross_entropy(
     ce = -(onehot * logp)
     if weight is not None:
         ce = ce * weight.float()
-    return torch.mean(torch.sum(ce, dim=-1))
+    ce = torch.sum(ce, dim=-1)
+    if spatial is None:
+        return torch.mean(ce)
+    return _volume_sum(torch.sum(ce), spatial) / _voxels(ce, spatial)
 
 
 def soft_dice_loss(
@@ -63,6 +87,7 @@ def soft_dice_loss(
     batch_dice: bool = False,
     group: Optional[dist.ProcessGroup] = None,
     apply_softmax: bool = True,
+    spatial: Optional[AxisShard] = None,
 ) -> torch.Tensor:
     """MONAI `DiceLoss(softmax=True, to_onehot_y=True)` semantics
     (`monai/losses/dice.py:30-200`): per-(sample, class) dice over spatial
@@ -71,15 +96,18 @@ def soft_dice_loss(
     num_classes = logits.shape[-1]
     probs = F.softmax(logits.float(), dim=-1) if apply_softmax else logits.float()
     onehot = _one_hot(labels, num_classes)
-    spatial = tuple(range(1, logits.ndim - 1))
+    dims = tuple(range(1, logits.ndim - 1))
 
-    intersection = torch.sum(probs * onehot, dim=spatial)  # (B, K)
+    intersection = torch.sum(probs * onehot, dim=dims)  # (B, K)
     if squared_pred:
-        pred_sum = torch.sum(probs**2, dim=spatial)
-        gt_sum = torch.sum(onehot**2, dim=spatial)
+        pred_sum = torch.sum(probs**2, dim=dims)
+        gt_sum = torch.sum(onehot**2, dim=dims)
     else:
-        pred_sum = torch.sum(probs, dim=spatial)
-        gt_sum = torch.sum(onehot, dim=spatial)
+        pred_sum = torch.sum(probs, dim=dims)
+        gt_sum = torch.sum(onehot, dim=dims)
+    if spatial is not None:
+        intersection, pred_sum, gt_sum = _volume_sum(
+            torch.stack([intersection, pred_sum, gt_sum]), spatial)
 
     if batch_dice:
         intersection = torch.sum(intersection, dim=0, keepdim=True)
@@ -106,12 +134,13 @@ def dice_ce_loss(
     include_background: bool = True,
     batch_dice: bool = False,
     group: Optional[dist.ProcessGroup] = None,
+    spatial: Optional[AxisShard] = None,
 ) -> torch.Tensor:
     """MONAI `DiceCELoss(to_onehot_y=True, softmax=True)` (`dice.py:639`);
     the CE term is this rank's mean."""
     d = soft_dice_loss(logits, labels, include_background=include_background,
-                       batch_dice=batch_dice, group=group)
-    c = softmax_cross_entropy(logits, labels)
+                       batch_dice=batch_dice, group=group, spatial=spatial)
+    c = softmax_cross_entropy(logits, labels, spatial=spatial)
     return lambda_dice * d + lambda_ce * c
 
 
@@ -124,8 +153,8 @@ class DiceCELoss:
                            include_background=include_background, batch_dice=batch_dice,
                            group=group)
 
-    def __call__(self, logits, labels):
-        return dice_ce_loss(logits, labels, **self.kwargs)
+    def __call__(self, logits, labels, spatial=None):
+        return dice_ce_loss(logits, labels, spatial=spatial, **self.kwargs)
 
 
 def dice_bce_loss(
@@ -137,6 +166,7 @@ def dice_bce_loss(
     batch_dice: bool = True,
     smooth: float = 1e-5,
     group: Optional[dist.ProcessGroup] = None,
+    spatial: Optional[AxisShard] = None,
 ) -> torch.Tensor:
     """Region-based sigmoid DC+BCE (reference `DC_and_BCE_loss`,
     `light_training/loss/compound_losses.py:60-100` with
@@ -158,20 +188,30 @@ def dice_bce_loss(
     # BCE with logits (torch BCEWithLogitsLoss semantics), written out
     bce = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-torch.abs(x)))
     if mask is not None:
-        ce = torch.sum(bce * mask) / torch.clamp(torch.sum(mask), min=1e-8)
-    else:
+        if spatial is None:
+            ce = torch.sum(bce * mask) / torch.clamp(torch.sum(mask), min=1e-8)
+        else:
+            num, den = _volume_sum(torch.stack([torch.sum(bce * mask), torch.sum(mask)]),
+                                   spatial)
+            ce = num / torch.clamp(den, min=1e-8)
+    elif spatial is None:
         ce = torch.mean(bce)
+    else:
+        ce = _volume_sum(torch.sum(bce), spatial) / _voxels(bce, spatial)
 
     probs = torch.sigmoid(x)
-    spatial = tuple(range(1, x.ndim - 1))
+    dims = tuple(range(1, x.ndim - 1))
     if mask is not None:
-        intersect = torch.sum(probs * t * mask, dim=spatial)
-        sum_pred = torch.sum(probs * mask, dim=spatial)
-        sum_gt = torch.sum(t * mask, dim=spatial)
+        intersect = torch.sum(probs * t * mask, dim=dims)
+        sum_pred = torch.sum(probs * mask, dim=dims)
+        sum_gt = torch.sum(t * mask, dim=dims)
     else:
-        intersect = torch.sum(probs * t, dim=spatial)
-        sum_pred = torch.sum(probs, dim=spatial)
-        sum_gt = torch.sum(t, dim=spatial)
+        intersect = torch.sum(probs * t, dim=dims)
+        sum_pred = torch.sum(probs, dim=dims)
+        sum_gt = torch.sum(t, dim=dims)
+    if spatial is not None:
+        intersect, sum_pred, sum_gt = _volume_sum(
+            torch.stack([intersect, sum_pred, sum_gt]), spatial)
     if batch_dice:
         intersect = torch.sum(intersect, dim=0)
         sum_pred = torch.sum(sum_pred, dim=0)
@@ -184,21 +224,25 @@ def dice_bce_loss(
 
 
 def topk_cross_entropy(
-    logits: torch.Tensor, labels: torch.Tensor, k_percent: float = 10.0
+    logits: torch.Tensor, labels: torch.Tensor, k_percent: float = 10.0,
+    spatial: Optional[AxisShard] = None,
 ) -> torch.Tensor:
     """nnUNet `TopKLoss` (`loss/robust_ce_loss.py`): mean over the top-k%
-    highest-CE voxels of each sample."""
+    highest-CE voxels of each sample (of the whole volume: with `spatial`
+    the per-voxel CE is gathered along D first)."""
     onehot = _one_hot(labels, logits.shape[-1])
     logp = F.log_softmax(logits.float(), dim=-1)
-    ce = -torch.sum(onehot * logp, dim=-1).reshape(logits.shape[0], -1)
+    ce = -torch.sum(onehot * logp, dim=-1)
+    ce = depth.gather_depth(ce.contiguous(), spatial, replicated=True)
+    ce = ce.reshape(logits.shape[0], -1)
     k = max(1, int(ce.shape[1] * k_percent / 100.0))
     return torch.mean(torch.topk(ce, k, dim=1).values)
 
 
-def dice_topk_loss(logits, labels, k_percent=10.0, **dice_kwargs):
+def dice_topk_loss(logits, labels, k_percent=10.0, spatial=None, **dice_kwargs):
     """nnUNet `DC_and_topk_loss` (`loss/compound_losses.py:103`)."""
-    return soft_dice_loss(logits, labels, **dice_kwargs) + topk_cross_entropy(
-        logits, labels, k_percent
+    return soft_dice_loss(logits, labels, spatial=spatial, **dice_kwargs) + topk_cross_entropy(
+        logits, labels, k_percent, spatial=spatial
     )
 
 

@@ -24,6 +24,11 @@ rows of the global batch: NT-Xent takes its negatives from the global 2B
 embeddings, gathered with `all_gather_with_grad`, the recon L1 is the
 global mean, so `total` is the same scalar on every rank, and the
 gradients are averaged over the ranks before AdamW (`GradientReducer`).
+On a mesh with `spatial` and `tensor` lines the JAX step still shards the
+batch over `data` alone, with the state replicated: the spatial and tensor
+ranks of a data row run the same rows on the whole `SSLViT` (no
+`shard_model`), and the reducer takes each line's rank-0 gradients before
+the mean over the data line, so every rank's masters stay equal.
 """
 
 from __future__ import annotations
@@ -37,14 +42,14 @@ import torch
 import torch.distributed as dist
 
 from waveformer_tpu_torch.parallel.collectives import all_gather_with_grad, cross_replica_mean
-from waveformer_tpu_torch.parallel.mesh import Mesh, check_data_only, replicate, shard_batch
+from waveformer_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from waveformer_tpu_torch.training.checkpoint import CheckpointManager
 from waveformer_tpu_torch.training.schedules import warmup_cosine_schedule
 from waveformer_tpu_torch.training.state import (
-    GradientReducer,
     TrainState,
     backward_and_update,
     make_optimizer,
+    make_reducer,
     master_params,
 )
 from waveformer_tpu_torch.training.trainer import upload
@@ -213,12 +218,12 @@ def make_ssl_step(model: torch.nn.Module, temperature: float = 0.5,
     the optimizer step on the masters and the masters back into the
     module. `metrics` holds device scalars: the loss, its contrast and
     recon parts, and the unclipped gradient norm. With a mesh that has a
-    group, v1, v2 and gt are this rank's rows of the global batch and the
-    loss is the global batch's (see the module's docstring)."""
-    check_data_only(mesh, "make_ssl_step")
+    group, v1, v2 and gt are this rank's rows of the global batch (its data
+    row's, whole) and the loss is the global batch's (see the module's
+    docstring)."""
     named = dict(model.named_parameters())
     group = mesh.group if mesh is not None else None
-    reducer = GradientReducer(mesh) if group is not None else None
+    reducer = make_reducer(mesh, replicated=True)
 
     def step(state: TrainState, v1: torch.Tensor, v2: torch.Tensor, gt: torch.Tensor):
         c1, r1 = model(v1)
@@ -263,7 +268,6 @@ class SSLTrainer:
         # the dtype the module computes in, from train() on
         compute_dtype: torch.dtype = torch.float32,
     ):
-        check_data_only(mesh, "SSLTrainer")
         self.model = model
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
@@ -314,7 +318,7 @@ class SSLTrainer:
         self.log.info(f"SSL model: {n_params:,} params")
 
         def rows(a):
-            return a if self.mesh is None else shard_batch(self.mesh, a)
+            return a if self.mesh is None else shard_batch(self.mesh, a, depth_axis=None)
 
         def views(gt):
             cdhw = gt.transpose(0, 4, 1, 2, 3)

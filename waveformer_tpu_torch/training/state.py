@@ -35,6 +35,18 @@ averages over the ranks (`GradientReducer`); then every rank clips by the
 global norm and updates its masters alike. The loss is then the mean over
 the global batch, and drop-path masks are the global batch's rows
 (`models.common.shard_drop_path`).
+
+On a mesh with `spatial` and `tensor` lines (`parallel/model_parallel.py`)
+the masters stay full fp32 tensors on every rank, as JAX's replicated
+state: they are taken before `shard_model` slices the module. Each rank
+runs its rows' D slab on its slices, the loss sums its volume statistics
+over the spatial line (the losses' `spatial=`), and each rank's backward
+yields its share of the row's one loss gradient
+(`parallel.collectives.AxisShard`). `GradientReducer` assembles the
+masters' gradients from them: the spatial line's shares summed, the
+tensor line's slices gathered, then the mean over the data line. Every
+rank then clips and updates the same full masters, and `TrainState.copy_to`
+writes this rank's slices of them into the module.
 """
 
 from __future__ import annotations
@@ -48,7 +60,11 @@ import torch
 import torch.distributed as dist
 
 from waveformer_tpu_torch.models.common import shard_drop_path
-from waveformer_tpu_torch.parallel.mesh import Mesh, check_data_only
+from waveformer_tpu_torch.parallel.collectives import AxisShard
+from waveformer_tpu_torch.parallel.mesh import Mesh, depth_slab
+from waveformer_tpu_torch.parallel.model_parallel import is_sharded
+from waveformer_tpu_torch.parallel.spatial import gather_depth
+from waveformer_tpu_torch.parallel.tensor_sharding import rows, shard_tensor, split_dim
 from waveformer_tpu_torch.training.schedules import Schedule, constant_schedule
 
 
@@ -129,10 +145,12 @@ def master_params(model: torch.nn.Module,
                   compute_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The fp32 masters of a module that still holds its fp32 weights, by
     name; then the module is cast to `compute_dtype` (its
-    `set_compute_dtype`). A parameter that stays fp32 is its own master;
-    any other keeps the fp32 values it had before the cast. So a bf16
-    module's masters are its fp32 weights, as the JAX package's fp32
-    params are, and not their bf16 rounding."""
+    `set_compute_dtype`). A parameter that stays fp32 is its own master
+    (`shard_model` then puts a new parameter with this rank's slice in the
+    module and leaves the full master be); any other keeps the fp32 values
+    it had before the cast. So a bf16 module's masters are its fp32
+    weights, as the JAX package's fp32 params are, and not their bf16
+    rounding."""
     weights = {}
     for n, p in model.named_parameters():
         if p.dtype != torch.float32:
@@ -189,52 +207,152 @@ class TrainState:
                 self.opt_state.nu[i].copy_(nu[n])
         self.opt_state.count = self.step = int(step)
 
-    def copy_to(self, model: torch.nn.Module) -> None:
+    def copy_to(self, model: torch.nn.Module, tensor: Optional[AxisShard] = None) -> None:
         """Write the masters into the module's parameters where they are
-        copies (parameters in another dtype)."""
+        copies (parameters in another dtype, or this tensor rank's slices
+        of them)."""
         with torch.no_grad():
             for n, p in model.named_parameters():
                 m = self.params[n]
-                if m is not p:
+                if m.shape != p.shape:
+                    m = shard_tensor(n, m, tensor)
+                if m.data_ptr() != p.data_ptr() or m.dtype != p.dtype:
                     p.copy_(m)
 
 
+LINES = ("spatial", "tensor", "data")
+
+
 class GradientReducer:
-    """The mean over the ranks of a mesh of every fp32 gradient and the
-    loss, in one flat buffer and one all-reduce. Every rank passes the
-    same tensors in the same order (a parameter the loss does not reach
-    has a zero gradient, never a missing one). On the card the last 64
-    all-reduces are bracketed by CUDA events (`device_ms`)."""
+    """Every rank's fp32 gradients made the masters' gradients of the
+    global batch, in one flat buffer and one collective a line, in order:
 
-    def __init__(self, mesh: Mesh):
+      1. `spatial`: the sum over the line (each slab's share);
+      2. `tensor`: a sliced parameter's slices (the keys
+         `tensor_sharding.RULES` names) gathered into the full tensor in
+         the order of `tensor_sharding.rows`; a replicated parameter's
+         gradient, which every tensor rank computes alike, taken from
+         tensor rank 0 in the same buffer (on the card an atomic sum may
+         round it differently on another rank, and the masters must stay
+         equal);
+      3. `data`: the mean over the line, with the loss.
+
+    With `replicated` (the SSL step: the spatial and tensor ranks of a row
+    run the same rows on the whole model) steps 1 and 2 take line rank 0's
+    gradients. Every rank passes the same tensors in the same order (a
+    parameter the loss does not reach has a zero gradient, never a missing
+    one). On the card the last 64 collectives of each line are bracketed
+    by CUDA events (`device_ms`); `bytes` counts what each line moved."""
+
+    def __init__(self, mesh: Mesh, replicated: bool = False):
         self.mesh = mesh
-        self.events: collections.deque = collections.deque(maxlen=64)
+        self.replicated = replicated
+        self.events = {line: collections.deque(maxlen=64) for line in LINES}
+        self.bytes = dict.fromkeys(LINES, 0)
+        self._order: Dict[Tuple[str, int], torch.Tensor] = {}
 
-    def __call__(self, grads: List[torch.Tensor],
-                 loss: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        """(the averaged gradients, views of one buffer; the averaged loss)."""
-        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().float().reshape(1)])
+    def _run(self, line: str, flat: torch.Tensor, group, src: Optional[int] = None) -> None:
+        """All-reduce `flat` over `group` in place (broadcast it from line
+        rank `src`), timed and counted as `line`'s."""
         timed = flat.is_cuda
         if timed:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-        dist.all_reduce(flat, group=self.mesh.group)
+        if src is None:
+            dist.all_reduce(flat, group=group)
+        else:
+            dist.broadcast(flat, dist.get_global_rank(group, src), group=group)
         if timed:
             end.record()
-            self.events.append((start, end))
-        flat.div_(self.mesh.size)
-        parts = torch.split(flat[:-1], [g.numel() for g in grads])
-        return [p.view_as(g) for p, g in zip(parts, grads)], flat[-1]
+            self.events[line].append((start, end))
+        self.bytes[line] += flat.numel() * flat.element_size()
 
-    def device_ms(self) -> List[float]:
-        """Device ms of each kept all-reduce (waits for the device)."""
+    @staticmethod
+    def _split(flat: torch.Tensor, like: List[torch.Tensor]) -> List[torch.Tensor]:
+        parts = torch.split(flat, [g.numel() for g in like])
+        return [p.view_as(g) for p, g in zip(parts, like)]
+
+    def _line(self, line: str, grads: List[torch.Tensor], shard: AxisShard) -> List[torch.Tensor]:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        self._run(line, flat, shard.group, 0 if self.replicated else None)
+        return self._split(flat, grads)
+
+    def _full_order(self, name: str, n: int, t: AxisShard, device) -> torch.Tensor:
+        """Where each row of the slices concatenated in rank order goes in
+        the full tensor's split dim (of extent n)."""
+        key = (name, n)
+        if key not in self._order:
+            cat = torch.cat([rows(name, n, r, t.size) for r in range(t.size)])
+            self._order[key] = torch.argsort(cat).to(device)
+        return self._order[key]
+
+    def _tensor(self, grads: List[torch.Tensor], masters: Mapping[str, torch.Tensor]
+                ) -> List[torch.Tensor]:
+        t = self.mesh.tensor
+        names = list(masters)
+        sliced = [i for i, n in enumerate(names) if split_dim(n) is not None]
+        kept = [i for i, n in enumerate(names) if split_dim(n) is None]
+        empty = grads[0].reshape(-1)[:0]
+        part, rest = (torch.cat([grads[i].reshape(-1) for i in idx] + [empty])
+                      for idx in (sliced, kept))
+        k = part.numel()
+        flat = part.new_zeros(t.size * k + rest.numel())
+        flat[t.rank * k:(t.rank + 1) * k] = part
+        if t.rank == 0:
+            flat[t.size * k:] = rest
+        self._run("tensor", flat, t.group)
+        out = list(grads)
+        slots = flat[:t.size * k].view(t.size, k)
+        off = 0
+        for i in sliced:
+            g, name = grads[i], names[i]
+            dim = split_dim(name)
+            n = masters[name].shape[dim]
+            joined = torch.cat([slots[r, off:off + g.numel()].view_as(g) for r in range(t.size)],
+                               dim)
+            out[i] = joined.index_select(dim, self._full_order(name, n, t, g.device))
+            off += g.numel()
+        for i, v in zip(kept, self._split(flat[t.size * k:], [grads[i] for i in kept])):
+            out[i] = v
+        return out
+
+    def __call__(self, grads: List[torch.Tensor], loss: torch.Tensor,
+                 masters: Optional[Mapping[str, torch.Tensor]] = None
+                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """(the masters' gradients, views of the buffers; the averaged
+        loss). `masters` (names and full shapes, in the gradients' order)
+        is needed on a tensor line."""
+        mesh = self.mesh
+        if mesh.spatial is not None:
+            grads = self._line("spatial", grads, mesh.spatial)
+        if mesh.tensor is not None:
+            grads = (self._line("tensor", grads, mesh.tensor) if self.replicated
+                     else self._tensor(grads, masters))
+        loss = loss.detach().float().reshape(1)
+        if mesh.group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads] + [loss])
+            self._run("data", flat, mesh.group)
+            flat.div_(mesh.size)
+            grads, loss = self._split(flat[:-1], grads), flat[-1:]
+        return grads, loss[0]
+
+    def device_ms(self, line: str = "data") -> List[float]:
+        """Device ms of each kept collective of `line` (waits for the
+        device)."""
         torch.cuda.synchronize()
-        return [s.elapsed_time(e) for s, e in self.events]
+        return [s.elapsed_time(e) for s, e in self.events[line]]
+
+
+def make_reducer(mesh: Optional[Mesh], replicated: bool = False) -> Optional[GradientReducer]:
+    """The step's `GradientReducer`, or None where nothing communicates."""
+    if mesh is None or (mesh.group is None and mesh.spatial is None and mesh.tensor is None):
+        return None
+    return GradientReducer(mesh, replicated)
 
 
 def make_train_step(
     model: torch.nn.Module,
-    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    loss_fn: Callable[..., torch.Tensor],
     mesh: Optional[Mesh] = None,
 ) -> Callable:
     """`step(state, batch, generator=None) -> (state, metrics)`: forward in
@@ -244,20 +362,29 @@ def make_train_step(
     gradient norm.
 
     With a mesh that has a group, `batch` is this rank's rows of the
-    global batch, every rank seeds `generator` alike, and the gradients
-    and the loss are averaged over the ranks before the clip (the step's
-    `reducer`); the module's drop paths draw the global batch's masks."""
-    check_data_only(mesh, "make_train_step")
+    global batch (and its D slab on a spatial line, `shard_batch`), every
+    rank seeds `generator` alike, and the gradients and the loss are
+    assembled over the lines before the clip (the step's `reducer`); the
+    module's drop paths draw the global batch's masks. On a spatial or
+    tensor line the module must be armed by `shard_model` (after the
+    state's masters were taken), and on a spatial line `loss_fn` is called
+    with `spatial=` the line, over which it sums its volume statistics (the
+    port's losses take it)."""
     named = dict(model.named_parameters())
-    reducer = None
-    if mesh is not None and mesh.group is not None:
-        reducer = GradientReducer(mesh)
+    reducer = make_reducer(mesh)
+    kw = {}
+    if reducer is not None:
+        if not is_sharded(model, mesh):
+            raise ValueError(f"mesh {mesh.shape} splits the model: arm it with "
+                             "shard_model(model, mesh) once its masters are taken")
         shard_drop_path(model, mesh.rank, mesh.size)
+        if mesh.spatial is not None:
+            kw["spatial"] = mesh.spatial
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None):
         logits = model(batch["data"], generator=generator)
-        loss = loss_fn(logits, batch["seg"])
+        loss = loss_fn(logits, batch["seg"], **kw)
         norm, loss = backward_and_update(state, loss, named, model, reducer)
         return state, {"loss": loss, "grad_norm": norm}
 
@@ -271,31 +398,38 @@ def backward_and_update(state: TrainState, loss: torch.Tensor,
                         reducer: Optional[GradientReducer] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of `loss` into the module's parameters `named`, their
-    fp32 gradients in the masters' order (averaged over the ranks by
-    `reducer`, with the loss), one optimizer step on the masters and the
+    fp32 gradients in the masters' order (assembled over the mesh's lines
+    by `reducer`, with the loss), one optimizer step on the masters and the
     masters back into the module. Returns the unclipped global norm and
     the (averaged) loss, detached, as device scalars."""
     for p in named.values():
         p.grad = None
     loss.backward()
     # a parameter the loss does not reach gets zeros, as its JAX gradient is
-    grads = [named[n].grad.float() if named[n].grad is not None else torch.zeros_like(m)
-             for n, m in state.params.items()]
+    grads = [named[n].grad.float() if named[n].grad is not None
+             else torch.zeros_like(named[n], dtype=torch.float32) for n in state.params]
     for p in named.values():
         p.grad = None
     loss = loss.detach()
+    tensor = None
     if reducer is not None:
-        grads, loss = reducer(grads, loss)
+        grads, loss = reducer(grads, loss, state.params)
+        tensor = reducer.mesh.tensor
     norm = state.apply_gradients(grads)
-    state.copy_to(model)
+    state.copy_to(model, tensor)
     return norm, loss
 
 
-def make_eval_step(model: torch.nn.Module) -> Callable:
-    """`step(image) -> logits`: a forward with no autograd record."""
+def make_eval_step(model: torch.nn.Module, mesh: Optional[Mesh] = None) -> Callable:
+    """`step(image) -> logits`: a forward with no autograd record. On a
+    spatial line `image` holds this rank's rows, whole along D: the step
+    runs the module on this rank's D slab and joins the logits."""
+    axis = 2 if getattr(model, "io_layout", "channels_last") == "channels_first" else 1
 
     def step(image: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return model(image)
+            if mesh is None or mesh.spatial is None:
+                return model(image)
+            return gather_depth(model(depth_slab(mesh, image, axis)), mesh.spatial, axis)
 
     return step

@@ -29,7 +29,20 @@ seed (seed + rank); the step averages the fp32 gradients over the ranks
 the start and after a resume; the validation patches are split over the
 ranks and their dice rows gathered (`gather_metrics`); rank 0 alone
 writes logs, TensorBoard scalars and checkpoints, and every rank waits
-for the others before `train()` returns. The model is built by the caller (`scripts/train.py` through
+for the others before `train()` returns.
+
+On a mesh with `spatial` and `tensor` lines (JAX's `Trainer` takes any
+`(data, spatial, tensor)` mesh) the masters are taken from the whole
+module and `shard_model` then slices it; the rank at spatial and tensor
+coordinate 0 of each data row draws the row's batches and broadcasts them
+over its lines, every rank cuts its D slab, and the step assembles the
+gradients over every line (`make_train_step`). Patch validation runs the
+sharded forward and joins the logits along D; full-volume validation runs
+on the rank at (0, 0, 0) alone, on an unsharded copy of the module loaded
+from the masters, as JAX runs it on device 0. The masters and moments are
+full on every rank, so checkpoints are written as on a data mesh.
+
+The model is built by the caller (`scripts/train.py` through
 `create_waveformer`) on the device it trains on; its current weights are
 the initial masters. The caller builds it in fp32; the trainer casts it to
 `compute_dtype` once those fp32 weights (or a checkpoint that
@@ -41,16 +54,19 @@ Subclasses override `training_loss` / `validation_step` /
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from waveformer_tpu_torch.data.pipeline import PrefetchLoader
 from waveformer_tpu_torch.parallel.collectives import gather_metrics
-from waveformer_tpu_torch.parallel.mesh import Mesh, check_data_only, replicate
+from waveformer_tpu_torch.parallel.mesh import Mesh, depth_slab, replicate
+from waveformer_tpu_torch.parallel.model_parallel import shard_model
 from waveformer_tpu_torch.training.checkpoint import CheckpointManager, params_tree
 from waveformer_tpu_torch.training.losses import dice_ce_loss
 from waveformer_tpu_torch.training.schedules import make_schedule
@@ -115,12 +131,20 @@ class Trainer:
         # the dtype the module computes in, from train() on
         compute_dtype: torch.dtype = torch.float32,
     ):
-        check_data_only(mesh, "Trainer")
         self.model = model
         self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
+        # the mesh's model-parallel lines (None where it has none)
+        self.spatial = None if mesh is None else mesh.spatial
+        self.tensor = None if mesh is None else mesh.tensor
+        self.model_parallel = self.spatial is not None or self.tensor is not None
+        # the rank that draws its data row's batches
+        self.row_lead = mesh is None or mesh.coords[1:] == (0, 0)
+        # the unsharded module of full-volume validation at (0, 0, 0) on a
+        # model-parallel mesh
+        self._full_model: Optional[torch.nn.Module] = None
         if mesh is not None and batch_size % mesh.size:
             raise ValueError(f"global batch {batch_size} does not split over "
                              f"{mesh.size} processes")
@@ -153,7 +177,7 @@ class Trainer:
         self.writer: Optional[SummaryWriter] = None
         self.ckpt = CheckpointManager(os.path.join(logdir, "model")) if self.is_main else None
         self._train_step = None
-        self._eval_step = make_eval_step(model)
+        self._eval_step = make_eval_step(model, mesh)
         self._generator = torch.Generator(device=self.device)
         self.full_val_every = full_val_every
         self.full_val_cases = full_val_cases
@@ -164,8 +188,10 @@ class Trainer:
     # ------------------------------------------------------------------ #
     # hooks (reference `trainer.py:483-493`)
     # ------------------------------------------------------------------ #
-    def training_loss(self, logits, batch) -> torch.Tensor:
-        return dice_ce_loss(logits, batch["seg"])
+    def training_loss(self, logits, batch, spatial=None) -> torch.Tensor:
+        """The loss of this rank's logits; `spatial` the mesh's spatial line,
+        over which the volume's sums are summed (None without one)."""
+        return dice_ce_loss(logits, batch["seg"], spatial=spatial)
 
     def convert_labels(self, labels: torch.Tensor) -> torch.Tensor:
         """Label map (B,...,1) → (B, K, ...) fp32 binary stack for validation
@@ -185,7 +211,9 @@ class Trainer:
         classes are filtered from the epoch mean rather than counted as 1.0
         (`light_training/trainer.py:240-269`). `params` is the state's
         masters, which the module holds after every step; it stays in the
-        hook's signature as in the JAX trainer."""
+        hook's signature as in the JAX trainer. `batch` holds this rank's
+        rows, whole volumes on a spatial line too (the eval step cuts the
+        slab and joins the logits)."""
         logits = self._eval_step(batch["data"])
         pred = torch.argmax(logits, dim=-1)[..., None]
         pred_c = self.convert_labels(pred)
@@ -242,7 +270,7 @@ class Trainer:
         if self.resume and self.ckpt is not None and self.ckpt.latest_checkpoint() is not None:
             path, epoch = self.ckpt.latest_checkpoint()
             self.state = self.ckpt.load_state(self.state, path)
-            self.state.copy_to(self.model)
+            self.state.copy_to(self.model, self.tensor)
             self.log.info(f"resumed from {path} at epoch {epoch + 1}")
         if self.mesh is not None:
             e = torch.tensor([epoch], device=self.mesh.device)
@@ -250,13 +278,13 @@ class Trainer:
         return epoch
 
     def _broadcast_state(self) -> None:
-        """Rank 0's masters, moments and step count on every rank, and the
-        masters in the module."""
+        """The masters, moments and step count of the rank at (0, 0, 0) on
+        every rank, and the masters (this rank's slices) in the module."""
         mu, nu = self.state.moments()
         replicate(self.mesh, [*self.state.params.values(), *mu.values(), *nu.values()])
         step = torch.tensor([self.state.step], device=self.mesh.device)
         self.state.opt_state.count = self.state.step = int(replicate(self.mesh, [step])[0])
-        self.state.copy_to(self.model)
+        self.state.copy_to(self.model, self.tensor)
 
     # ------------------------------------------------------------------ #
     def train(self, train_ds, val_ds) -> float:
@@ -287,6 +315,10 @@ class Trainer:
         )
 
         self.state = self._init_state()
+        if self.model_parallel:
+            if self.is_main:
+                self._full_model = copy.deepcopy(self.model)
+            shard_model(self.model, self.mesh)
         n_params = sum(int(p.numel()) for p in self.state.params.values())
         self.log.info(f"model {self.model_name}: {n_params:,} params; device {self.device}"
                       + ("" if self.mesh is None else f"; mesh {self.mesh.shape}"))
@@ -297,7 +329,7 @@ class Trainer:
         self.global_step = self.state.step
 
         self._train_step = make_train_step(
-            self.model, lambda logits, seg: self.training_loss(logits, {"seg": seg}),
+            self.model, lambda logits, seg, **kw: self.training_loss(logits, {"seg": seg}, **kw),
             mesh=self.mesh)
 
         try:
@@ -316,7 +348,8 @@ class Trainer:
                 if (self.epoch + 1) % self.val_every == 0:
                     dices = self._validate(val_loader)
                     self.validation_end(dices)
-                if self.full_val_every and (self.epoch + 1) % self.full_val_every == 0:
+                if (self.full_val_every and (self.epoch + 1) % self.full_val_every == 0
+                        and (self.is_main or not self.model_parallel)):
                     self.full_volume_validation(val_ds)
         finally:
             self.model.eval()
@@ -329,8 +362,32 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {"data": upload(batch["data"], self.device, np.float32),
-                "seg": upload(batch["seg"], self.device, np.int32)}
+        """This rank's rows on the device: the loader's `batch`, or on a
+        model-parallel mesh the row lead's, broadcast over the spatial
+        line, then the tensor line (`batch` is None off the lead)."""
+        if batch is not None:
+            out = {"data": upload(batch["data"], self.device, np.float32),
+                   "seg": upload(batch["seg"], self.device, np.int32)}
+        if not self.model_parallel:
+            return out
+        shapes = torch.zeros(10, dtype=torch.int64, device=self.mesh.device)
+        if batch is not None:
+            shapes[:] = torch.tensor(out["data"].shape + out["seg"].shape)
+        lines = [line for line in (self.spatial, self.tensor) if line is not None]
+        for line in lines:
+            dist.broadcast(shapes, dist.get_global_rank(line.group, 0), group=line.group)
+        if batch is None:
+            shape = shapes.tolist()
+            out = {"data": torch.empty(shape[:5], device=self.device),
+                   "seg": torch.empty(shape[5:], dtype=torch.int32, device=self.device)}
+        for line in lines:
+            for t in out.values():
+                dist.broadcast(t, dist.get_global_rank(line.group, 0), group=line.group)
+        return out
+
+    def _row_batches(self, loader, n: int):
+        """The loader's `n` batches on the row lead, None elsewhere."""
+        return iter(loader) if self.row_lead else iter([None] * n)
 
     # How many steps the host may run ahead of the device before it reads a
     # loss back: `.item()` every step would wait for the device and
@@ -352,14 +409,16 @@ class Trainer:
                 losses.append(loss)
                 self.log_scalar("training_loss", loss, s)
 
-        it = iter(loader)
+        it = self._row_batches(loader, self.num_steps_per_epoch)
         while True:
             t0 = time.perf_counter()
-            batch = next(it, None)
+            batch = next(it, StopIteration)
             wait_s += time.perf_counter() - t0
-            if batch is None:
+            if batch is StopIteration:
                 break
             b = self._device_batch(batch)
+            if self.spatial is not None:
+                b = depth_slab(self.mesh, b)
             self._generator.manual_seed(step_seed(self.seed, self.global_step))
             self.state, metrics = self._train_step(self.state, b, self._generator)
             pending.append((self.global_step, metrics["loss"]))
@@ -370,7 +429,7 @@ class Trainer:
 
     def _validate(self, loader) -> np.ndarray:
         per_patch: List[np.ndarray] = []
-        for batch in loader:
+        for batch in self._row_batches(loader, len(loader)):
             b = self._device_batch(batch)
             per_patch.append(self.validation_step(self.state.params, b))
         all_vals = np.concatenate(per_patch, axis=0)  # (N, K) with NaNs
@@ -397,12 +456,16 @@ class Trainer:
         """Argmax labels of a (C, D, H, W) volume by sliding-window
         inference with the current weights, no TTA."""
         vol = torch.from_numpy(np.array(np.asarray(data).transpose(1, 2, 3, 0), np.float32))
-        was_training = self.model.training
-        self.model.eval()
+        model = self.model
+        if self._full_model is not None:
+            model = self._full_model
+            self.state.copy_to(model)
+        was_training = model.training
+        model.eval()
         try:
-            logits = self._inferer()(vol.to(self.device), self.model, self.num_classes)
+            logits = self._inferer()(vol.to(self.device), model, self.num_classes)
         finally:
-            self.model.train(was_training)
+            model.train(was_training)
         return torch.argmax(logits, dim=-1).cpu().numpy()
 
     def full_volume_validation(self, val_ds, max_cases: Optional[int] = None
@@ -464,7 +527,7 @@ class Trainer:
         ``predict_case(item) -> float | sequence`` is the model-define
         hook; omitted, it is sliding-window inference with the module's
         current weights + per-class dice against the stored segmentation."""
-        if self.mesh is not None and self.mesh.size > 1:
+        if self.mesh is not None and self.mesh.spec.size() > 1:
             raise RuntimeError(
                 "validation_single_gpu is single-process by contract "
                 "(reference refuses under DDP, trainer.py:217-219); use "
@@ -500,6 +563,6 @@ class Trainer:
             with torch.no_grad():
                 for n, m in self.state.params.items():
                     m.copy_(sd[n])
-            self.state.copy_to(self.model)
+            self.state.copy_to(self.model, self.tensor)
         else:
             self.model.load_state_dict(sd, strict=True)
