@@ -170,6 +170,30 @@ Phases, each of which must pass:
      10a's master limit of the steps without a mesh. To iterate on it
      alone: `chip_smoke.run_model_parallel_training()` from a guarded
      script after `_build.LIBRARIES.build_all()`.
+ 16. the auxiliary ops, which run none of the port's kernels (the JAX
+     package writes them in plain `jnp`): each sub-phase's calls on the
+     card against the same calls on CPU tensors in fp32 (TF32 off), every
+     output on the card, every kernel's launches 0, each sub-phase's card
+     ms (CUDA events) and peak memory on its line. (a) `grid_pull` at
+     orders 0-3 × zero/clamp/reflect and with per-dimension orders and
+     bounds, `grid_push` and `grid_count` at orders 1 and 3, pull's
+     gradients for the volume and the coordinates at orders 1 and 3, the
+     adjoint identity and `spline_prefilter` at order 3, on a (128³, 4)
+     volume and 2,097,152 points (the identity grid displaced smoothly by
+     up to 4 voxels); (b) `bilateral_filter` and `joint_bilateral_filter`
+     on (1, 128³, 4) at σs = 1, σc = 0.5, `TrainableBilateralFilter`'s
+     forward and backward against the CPU at 64³, then its 128³ backward
+     on the card alone (finite gradients, peak memory); (c) `gmm_fit`
+     (4096 × 4, K = 2, 20 steps) and `gmm_segment` of a 128³ × 4 volume
+     with two seeded classes, one under 4096 seeds (labels ≥ 99.9% equal);
+     (d) criss-cross attention at CCNet's Cityscapes head (2, 97 × 97, 64
+     / 512) with its gradients; (e) the legacy 2D modules at SegFormer
+     MiT-B2's stage 1 on 512² images, batch 2, weights carried from the CPU
+     modules; (f) the generic wavelet path with a registered 2-tap bank at
+     the flagship's stage-1 shape (8, 64³, 48), level 3, a copy of db1's
+     bank against the Haar path, and a 4-tap bank raising ValueError. To
+     iterate on it alone: `chip_smoke.run_aux_ops()` with TF32 off (no
+     kernel build needed).
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -355,6 +379,22 @@ MP_TRAIN_RUNS = {"spatial2": ((1, 2, 1), (("float32", 128), ("bfloat16", 128))),
 # of about 1e-3 of the model's largest gradient. Norm: 1e-4 (fp32), 2e-2
 MP_TRAIN_TOL = {"float32": (1e-2, 1e-6, 1e-4), "bfloat16": (5e-2, 1e-3, 2e-2)}
 MP_TRAINER_STEPS = 2
+# phase 16, the auxiliary ops (no port kernel on their path), card against
+# CPU in fp32 with TF32 off. Limits: the CPU tests' against JAX (forwards
+# 1e-5, gradients and GMM parameters 1e-4, relative to each output's largest
+# value) widened 10× for the card's other summation order (push's atomics,
+# cuBLAS/cuDNN reductions); GMM labels flip only at a likelihood tie.
+AUX_TOL = {"forward": 1e-4, "gradient": 1e-3, "gmm_params": 1e-3, "labels_equal": 0.999,
+           "adjoint": 1e-5}
+AUX_VOLUME = (128, 128, 128, 4)  # a BraTS crop, channels-last
+AUX_MAX_DISPLACEMENT = 4.0  # voxels, a smooth seeded field on the identity grid
+AUX_BILATERAL = (1.0, 0.5)  # σs, σc: radius 2, 125 offsets
+AUX_BILATERAL_GRAD_SIDE = 64  # the trainable filter's backward card vs CPU
+AUX_GMM_FIT = (4096, 4, 2, 20)  # rows, channels, components, EM steps
+AUX_GMM_SEEDS = (20000, 3000)  # seeded voxels of class 0 (outside) and 1 (inside)
+AUX_CC = (2, 97, 97, 64, 512)  # CCNet's Cityscapes head: B, 769/8, 769/8, Cqk, Cv
+AUX_MIT_B2 = (2, 512, 3, 64, 256)  # batch, image side, in, stage-1 width, MLP hidden
+AUX_WAVELET = ((8, 64, 64, 64, 48), 3)  # the flagship's stage-1 input, DWT level 3
 
 
 def log(msg):
@@ -2262,6 +2302,376 @@ def run_parallel(served, step_designs):
     return failed, launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: the auxiliary ops (grid pull/push, bilateral filters, GMM,
+# criss-cross attention, the legacy 2D modules, generic wavelets)
+# --------------------------------------------------------------------------- #
+
+
+def on_card(out):
+    """Whether every tensor in `out` (nested tuples, lists, dicts) lies on
+    the card."""
+    if torch.is_tensor(out):
+        return out.is_cuda
+    if isinstance(out, dict):
+        return all(on_card(v) for v in out.values())
+    if isinstance(out, (tuple, list)):
+        return all(on_card(v) for v in out)
+    return True
+
+
+def rel_err(got, want):
+    """max |got − want| / max |want|, on the host in fp32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+class AuxRow:
+    """One sub-phase of phase 16: each card call's output is compared with
+    the same call on CPU tensors, timed once more by CUDA events and its
+    peak memory read; the line also carries every port kernel's launches
+    over the sub-phase, which must be 0."""
+
+    def __init__(self, check):
+        self.row = {"check": check, "errors": {}, "limits": {}, "card_ms": {}, "peak_gb": {},
+                    "on_card": True}
+        self.ok = True
+        zero_kernel_counts()
+
+    def card(self, name, fn, time_it=True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        self.row["peak_gb"][name] = torch.cuda.max_memory_allocated() / 2**30
+        if time_it:
+            self.row["card_ms"][name] = cuda_ms(fn, iters=1, warmup=0)
+        self.row["on_card"] = self.row["on_card"] and on_card(out)
+        return out
+
+    def compare(self, name, got, want, kind):
+        err = rel_err(got, want)
+        self.row["errors"][name] = err
+        self.row["limits"][name] = AUX_TOL[kind]
+        self.ok &= bool(np.isfinite(err)) and err <= AUX_TOL[kind]
+
+    def check(self, name, good, value=None):
+        self.row[name] = bool(good) if value is None else value
+        self.ok &= bool(good)
+
+    def finish(self):
+        launches = kernel_counts()
+        self.row["launches"] = launches
+        self.row["card_ms_total"] = sum(self.row["card_ms"].values())
+        self.row["peak_gb_max"] = max(self.row["peak_gb"].values(), default=0.0)
+        self.ok &= self.row["on_card"] and not any(launches.values())
+        self.row["ok"] = bool(self.ok)
+        log(json.dumps(self.row))
+        return self.ok
+
+
+def aux_volume_and_coords(seed=SEED):
+    """A (D, H, W, C) unit-normal volume and one coordinate per voxel: the
+    identity grid plus a smooth seeded displacement of up to
+    AUX_MAX_DISPLACEMENT voxels per axis (a sine of wavelength ~64 voxels),
+    so that points leave every face."""
+    g = torch.Generator().manual_seed(seed)
+    d, h, w, c = AUX_VOLUME
+    vol = torch.randn(d, h, w, c, generator=g)
+    axes = [torch.arange(n, dtype=torch.float32) for n in (d, h, w)]
+    grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    freq = torch.randn(3, 3, generator=g) * (2 * np.pi / 64)
+    phase = torch.rand(3, generator=g) * 2 * np.pi
+    return vol, grid + AUX_MAX_DISPLACEMENT * torch.sin(grid @ freq.T + phase)
+
+
+def pull_grads(ts, vol, crd, u, bound, order):
+    v = vol.clone().requires_grad_(True)
+    c = crd.clone().requires_grad_(True)
+    (ts.grid_pull(v, c, bound, order) * u).sum().backward()
+    return v.grad, c.grad
+
+
+def run_aux_grid():
+    """16a: `grid_pull` at orders 0-3 × zero/clamp/reflect and once with
+    per-dimension orders and bounds, `grid_push` and `grid_count` at orders
+    1 and 3, pull's gradients for the volume and the coordinates at orders 1
+    and 3, the adjoint identity and `spline_prefilter` at order 3."""
+    from waveformer_tpu_torch.ops import spatial as ts
+
+    r = AuxRow("aux_grid")
+    vol, crd = aux_volume_and_coords()
+    u = torch.randn(crd.shape[0], vol.shape[-1], generator=torch.Generator().manual_seed(SEED + 1))
+    vc, cc, uc = (t.cuda() for t in (vol, crd, u))
+    hi = torch.tensor(AUX_VOLUME[:3], dtype=torch.float32) - 1
+    r.row.update(volume=list(AUX_VOLUME), points=crd.shape[0],
+                 outside_share=float(((crd < 0) | (crd > hi)).any(1).float().mean()))
+    mixed = ("reflect", "zero", "clamp")
+    for name, order, bound in ([(f"pull_{o}_{b}", o, b) for o in range(4) for b in ts.BOUND_MODES]
+                               + [("pull_per_dim", (3, 1, 2), mixed)]):
+        got = r.card(name, lambda: ts.grid_pull(vc, cc, bound, order))
+        r.compare(name, got, ts.grid_pull(vol, crd, bound, order), "forward")
+    for order in (1, 3):
+        got = r.card(f"push_{order}", lambda: ts.grid_push(uc, cc, AUX_VOLUME[:3], mixed, order))
+        r.compare(f"push_{order}", got, ts.grid_push(u, crd, AUX_VOLUME[:3], mixed, order),
+                  "forward")
+        got = r.card(f"count_{order}", lambda: ts.grid_count(cc, AUX_VOLUME[:3], mixed, order))
+        r.compare(f"count_{order}", got, ts.grid_count(crd, AUX_VOLUME[:3], mixed, order),
+                  "forward")
+        bound = "zero" if order == 1 else "reflect"
+        got = r.card(f"pull_grads_{order}", lambda: pull_grads(ts, vc, cc, uc, bound, order))
+        want = pull_grads(ts, vol, crd, u, bound, order)
+        r.compare(f"pull_grad_volume_{order}", got[0], want[0], "gradient")
+        r.compare(f"pull_grad_coords_{order}", got[1], want[1], "gradient")
+    # ⟨pull(v), u⟩ = ⟨v, push(u)⟩ on the card, against Σ|pull(v)·u|
+    pulled = ts.grid_pull(vc, cc, mixed, 3)
+    lhs = float((pulled.double() * uc.double()).sum())
+    rhs = float((vc.double() * ts.grid_push(uc, cc, AUX_VOLUME[:3], mixed, 3).double()).sum())
+    scale = float((pulled.double() * uc.double()).abs().sum())
+    r.row["adjoint_rel_err"] = abs(lhs - rhs) / scale
+    r.check("adjoint_ok", r.row["adjoint_rel_err"] <= AUX_TOL["adjoint"])
+    del pulled
+    got = r.card("prefilter_3", lambda: ts.spline_prefilter(vc, 3))
+    r.compare("prefilter_3", got, ts.spline_prefilter(vol, 3), "forward")
+    return r.finish()
+
+
+def trainable_grads(module, x, g):
+    x = x.clone().requires_grad_(True)
+    module.zero_grad(set_to_none=True)
+    y = module(x)
+    (y * g).sum().backward()
+    return y.detach(), x.grad, module.spatial_sigma.grad, module.color_sigma.grad
+
+
+def run_aux_bilateral():
+    """16b: `bilateral_filter` and `joint_bilateral_filter` (a 4-channel
+    guide) on a (1, 128³, 4) volume at σs = 1, σc = 0.5 (125 offsets);
+    `TrainableBilateralFilter` forward and backward (x and both sigmas)
+    card against CPU at 64³, then its 128³ backward on the card alone
+    (finite gradients, peak memory)."""
+    from waveformer_tpu_torch.ops import bilateral as tb
+
+    r = AuxRow("aux_bilateral")
+    ss, cs = AUX_BILATERAL
+    g = torch.Generator().manual_seed(SEED + 2)
+    x = torch.randn(1, *AUX_VOLUME, generator=g)
+    guide = torch.randn(1, *AUX_VOLUME, generator=g)
+    cot = torch.randn(1, *AUX_VOLUME, generator=g)
+    xc, gc = x.cuda(), guide.cuda()
+    got = r.card("bilateral_filter", lambda: tb.bilateral_filter(xc, ss, cs))
+    r.compare("bilateral_filter", got, tb.bilateral_filter(x, ss, cs), "forward")
+    got = r.card("joint_bilateral_filter", lambda: tb.joint_bilateral_filter(xc, gc, ss, cs))
+    r.compare("joint_bilateral_filter", got, tb.joint_bilateral_filter(x, guide, ss, cs),
+              "forward")
+    del got
+    cpu_mod = tb.TrainableBilateralFilter(ss, cs)
+    card_mod = tb.TrainableBilateralFilter(ss, cs).cuda()
+    card_mod.load_state_dict(cpu_mod.state_dict())
+    s = AUX_BILATERAL_GRAD_SIDE
+    xs, gs = (t[:, :s, :s, :s].contiguous() for t in (x, cot))
+    xsc, gsc = xs.cuda(), gs.cuda()
+    got = r.card(f"trainable_{s}", lambda: trainable_grads(card_mod, xsc, gsc))
+    want = trainable_grads(cpu_mod, xs, gs)
+    r.compare(f"trainable_{s}_forward", got[0], want[0], "forward")
+    for name, a, b in zip(("x", "spatial_sigma", "color_sigma"), got[1:], want[1:]):
+        r.compare(f"trainable_{s}_grad_{name}", a, b, "gradient")
+    del got
+    big = r.card(f"trainable_{AUX_VOLUME[0]}_card_only",
+                 lambda: trainable_grads(card_mod, xc, cot.cuda()))
+    r.check("card_only_grads_finite", all(bool(torch.isfinite(t).all()) for t in big))
+    r.row["card_only_sigma_grads"] = [float(big[2]), float(big[3])]
+    del big
+    torch.cuda.empty_cache()
+    return r.finish()
+
+
+def gmm_segment_case(seed=SEED):
+    """An AUX_VOLUME volume whose central sphere (radius a quarter of the
+    side) has its mean shifted by 2.5, and (D, H, W) seeds: AUX_GMM_SEEDS[0] voxels
+    outside the sphere marked 0 and AUX_GMM_SEEDS[1] (fewer than 4096)
+    inside marked 1, the rest −1."""
+    g = torch.Generator().manual_seed(seed)
+    d, h, w, c = AUX_VOLUME
+    vol = torch.randn(d, h, w, c, generator=g)
+    axes = [torch.arange(n, dtype=torch.float32) - n / 2 for n in (d, h, w)]
+    zz, yy, xx = torch.meshgrid(*axes, indexing="ij")
+    inside = (zz ** 2 + yy ** 2 + xx ** 2) < (min(d, h, w) / 4) ** 2
+    vol[inside] += 2.5
+    seeds = torch.full((d, h, w), -1, dtype=torch.int64)
+    flat, ins = seeds.reshape(-1), inside.reshape(-1)
+    for cls, (where, n) in enumerate(zip((~ins, ins), AUX_GMM_SEEDS)):
+        idx = torch.nonzero(where).squeeze(1)
+        flat[idx[torch.randperm(idx.numel(), generator=g)[:n]]] = cls
+    return vol, seeds, inside
+
+
+def run_aux_gmm():
+    """16c: `gmm_fit` (4096 × 4, K = 2, 20 EM steps) and `gmm_segment` of a
+    128³ × 4 volume with two seeded classes, one under 4096 seeds."""
+    from waveformer_tpu_torch.ops import gmm as tg
+
+    r = AuxRow("aux_gmm")
+    n, c, k, iters = AUX_GMM_FIT
+    g = torch.Generator().manual_seed(SEED + 3)
+    x = torch.cat([torch.randn(n // 2, c, generator=g),
+                   3.0 + 0.5 * torch.randn(n - n // 2, c, generator=g)])
+    xc = x.cuda()
+    got = r.card("gmm_fit", lambda: tg.gmm_fit(xc, k, iters, seed=0))
+    for name, a, b in zip(tg.GMMParams._fields, got, tg.gmm_fit(x, k, iters, seed=0)):
+        r.compare(f"gmm_fit_{name}", a, b, "gmm_params")
+    vol, seeds, inside = gmm_segment_case()
+    vc, sc = vol.cuda(), seeds.cuda()
+    got = r.card("gmm_segment", lambda: tg.gmm_segment(vc, sc, 2, 2, iters)).cpu()
+    want = tg.gmm_segment(vol, seeds, 2, 2, iters)
+    equal = float((got == want).float().mean())
+    r.check("labels_equal_share", equal >= AUX_TOL["labels_equal"], equal)
+    r.row["labels_equal_limit"] = AUX_TOL["labels_equal"]
+    r.row["sphere_labelled_1_share"] = float((got[inside] == 1).float().mean())
+    r.row["outside_labelled_0_share"] = float((got[~inside] == 0).float().mean())
+    return r.finish()
+
+
+def cc_grads(cca, q, k, v, g):
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = cca(*leaves)
+    (out * g).sum().backward()
+    return (out.detach(), *(t.grad for t in leaves))
+
+
+def run_aux_cc():
+    """16d: criss-cross attention at CCNet's Cityscapes head (B = 2, 97 ×
+    97, Cqk = 64, Cv = 512), forward and the gradients of q, k and v."""
+    from waveformer_tpu_torch.ops.cc_attention import criss_cross_attention
+
+    r = AuxRow("aux_cc_attention")
+    b, h, w, cqk, cv = AUX_CC
+    g = torch.Generator().manual_seed(SEED + 4)
+    q, k = (torch.randn(b, h, w, cqk, generator=g) for _ in range(2))
+    v, cot = (torch.randn(b, h, w, cv, generator=g) for _ in range(2))
+    ins = [t.cuda() for t in (q, k, v, cot)]
+    got = r.card("criss_cross", lambda: cc_grads(criss_cross_attention, *ins))
+    want = cc_grads(criss_cross_attention, q, k, v, cot)
+    r.compare("forward", got[0], want[0], "forward")
+    for name, a, b_ in zip("qkv", got[1:], want[1:]):
+        r.compare(f"grad_{name}", a, b_, "gradient")
+    return r.finish()
+
+
+def run_aux_legacy2d():
+    """16e: the legacy 2D modules at SegFormer MiT-B2's stage 1 on 512 × 512
+    images, batch 2: `OverlapPatchEmbed2D(3 → 64, 7, 4)` (128 × 128
+    tokens), `Mlp2D(64, hidden 256)`, `DWConv2D(256)` and `PosCNN2D(64)` at
+    strides 1 and 2, each card module loaded with its CPU twin's weights,
+    eval mode, on the same inputs."""
+    from waveformer_tpu_torch.models import legacy2d as tl
+
+    r = AuxRow("aux_legacy2d")
+    b, side, cin, c1, hidden = AUX_MIT_B2
+    builders = {
+        "patch_embed": lambda gen: tl.OverlapPatchEmbed2D(cin, c1, 7, 4, generator=gen),
+        "mlp": lambda gen: tl.Mlp2D(c1, hidden, generator=gen),
+        "dwconv": lambda gen: tl.DWConv2D(hidden, generator=gen),
+        "poscnn_s1": lambda gen: tl.PosCNN2D(c1, 1, generator=gen),
+        "poscnn_s2": lambda gen: tl.PosCNN2D(c1, 2, generator=gen),
+    }
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cpu, card = {}, {}
+    for name, build in builders.items():
+        cpu[name] = build(gen).eval()
+        card[name] = build(None).cuda().eval()
+        card[name].load_state_dict(cpu[name].state_dict())
+    img = torch.randn(b, side, side, cin, generator=gen)
+    with torch.no_grad():
+        tokens, h, w = cpu["patch_embed"](img)
+        got = r.card("patch_embed", lambda: card["patch_embed"](img.cuda()))
+        r.check("grid", got[1:] == (h, w) == (side // 4, side // 4), [h, w])
+        r.compare("patch_embed", got[0], tokens, "forward")
+        wide = torch.randn(b, h * w, hidden, generator=gen)
+        tc_, wc = tokens.cuda(), wide.cuda()
+        for name, args, cargs in (("mlp", (tokens,), (tc_,)), ("dwconv", (wide, h, w), (wc, h, w)),
+                                  ("poscnn_s1", (tokens, h, w), (tc_, h, w)),
+                                  ("poscnn_s2", (tokens, h, w), (tc_, h, w))):
+            got = r.card(name, lambda: card[name](*cargs))
+            r.compare(name, got, cpu[name](*args), "forward")
+    return r.finish()
+
+
+def run_aux_wavelets():
+    """16f: the generic FIR path at the flagship's stage-1 shape (8, 64³, 48)
+    with a registered 2-tap bank: `dwt3`/`idwt3` and `wavedec3`/`waverec3`
+    at level 3 against the CPU; a registered copy of db1's bank against the
+    Haar path; a 4-tap bank raising ValueError."""
+    from waveformer_tpu_torch.ops import wavelet as tw
+
+    r = AuxRow("aux_wavelets")
+    shape, level = AUX_WAVELET
+    sq = 0.5 ** 0.5
+    banks = {"aux_rot2": ([0.6, 0.8], [-0.8, 0.6], [0.8, 0.6], [0.6, -0.8]),
+             "aux_db1_copy": ([sq, sq], [-sq, sq], [sq, sq], [sq, -sq]),
+             "aux_db2": ([-0.1294095226, 0.2241438680, 0.8365163037, 0.4829629131],) * 4}
+    for name, bank in banks.items():
+        tw.register_wavelet(name, *bank)
+    try:
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(SEED + 6))
+        xc = x.cuda()
+
+        def compare_coeffs(tag, got, want):
+            r.compare(f"{tag}_lowpass", got[0], want[0], "forward")
+            for i, (gd, wd) in enumerate(zip(got[1:], want[1:])):
+                r.compare(f"{tag}_details_{i}", torch.stack([gd[k] for k in tw.DETAIL_KEYS]),
+                          torch.stack([wd[k] for k in tw.DETAIL_KEYS]), "forward")
+
+        got = r.card("dwt3", lambda: tw.dwt3(xc, "aux_rot2"))
+        want = tw.dwt3(x, "aux_rot2")
+        compare_coeffs("dwt3", got, want)
+        y = r.card("idwt3", lambda: tw.idwt3(*got, "aux_rot2"))
+        r.compare("idwt3", y, tw.idwt3(*want, "aux_rot2"), "forward")
+        del got, want, y
+        got = r.card("wavedec3", lambda: tw.wavedec3(xc, "aux_rot2", level))
+        want = tw.wavedec3(x, "aux_rot2", level)
+        compare_coeffs("wavedec3", got, want)
+        y = r.card("waverec3", lambda: tw.waverec3(got, "aux_rot2"))
+        r.compare("waverec3", y, tw.waverec3(want, "aux_rot2"), "forward")
+        r.compare("waverec3_reconstructs_x", y, xc, "forward")
+        del got, want, y
+        gen_c = r.card("wavedec3_db1_copy", lambda: tw.wavedec3(xc, "aux_db1_copy", level))
+        compare_coeffs("db1_copy_vs_haar", gen_c, tw.wavedec3(xc, "db1", level))
+        del gen_c
+        try:
+            tw.dwt3(xc, "aux_db2")
+            raised = False
+        except ValueError:
+            raised = True
+        r.check("four_taps_raise_value_error", raised)
+    finally:
+        for name in banks:
+            tw._WAVELETS.pop(name, None)
+    torch.cuda.empty_cache()
+    return r.finish()
+
+
+def run_aux_ops():
+    """Phase 16: the ops the JAX package writes in plain jnp (no Pallas), on
+    the card at a user's sizes, each held against the same call on CPU
+    tensors (fp32, TF32 off), every port kernel's launches 0 over each
+    sub-phase. Returns the names of the sub-phases that failed."""
+    failed = []
+    t_phase = time.time()
+    for name, fn in (("aux_grid", run_aux_grid), ("aux_bilateral", run_aux_bilateral),
+                     ("aux_gmm", run_aux_gmm), ("aux_cc_attention", run_aux_cc),
+                     ("aux_legacy2d", run_aux_legacy2d), ("aux_wavelets", run_aux_wavelets)):
+        t0 = time.time()
+        ok = fn()
+        log(json.dumps({"check": f"{name}_seconds", "seconds": time.time() - t0}))
+        if not ok:
+            failed.append(name)
+        torch.cuda.empty_cache()
+    log(json.dumps({"check": "aux_ops_phase", "seconds": time.time() - t_phase,
+                    "failed": failed}))
+    return failed
+
+
 def bound(nbytes, t_ops_s):
     """(bound_ms, bound_by): the larger of the bytes at the HBM rate and the
     operations' time at their peak rate."""
@@ -2735,6 +3145,7 @@ def main():
         failed += mp_failed
         for name, n in mp_launches.items():
             launches[name] += n
+    failed += run_aux_ops()
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")

@@ -1035,3 +1035,113 @@ class TestModelParallelKernelsOnCard:
             for got, want in zip(grads(s), [w[:, s] for w in whole[:3]] + [whole[3][s]]):
                 torch.testing.assert_close(got, want, rtol=rtol,
                                            atol=atol * float(want.abs().max()))
+
+
+def _aux_rel(got, want):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _aux_cases():
+    """(name, fn, args, first) of the auxiliary ops at small sizes: fn runs
+    on the args' device and returns a tensor or a tuple of tensors, the
+    gradients from position `first` on."""
+    from waveformer_tpu_torch.models import legacy2d as tl
+    from waveformer_tpu_torch.ops import bilateral as tb
+    from waveformer_tpu_torch.ops import cc_attention as tcc
+    from waveformer_tpu_torch.ops import gmm as tg
+    from waveformer_tpu_torch.ops import spatial as ts
+    from waveformer_tpu_torch.ops import wavelet as tw
+
+    g = torch.Generator().manual_seed(0)
+    vol = torch.randn(12, 10, 9, 3, generator=g)
+    crd = torch.rand(500, 3, generator=g) * 16 - 3
+    u = torch.randn(500, 3, generator=g)
+
+    def pull_grads(v, c, uu, order):
+        v, c = v.clone().requires_grad_(True), c.clone().requires_grad_(True)
+        (ts.grid_pull(v, c, ("reflect", "zero", "clamp"), order) * uu).sum().backward()
+        return v.grad, c.grad
+
+    def trainable(x, cot):
+        mod = tb.TrainableBilateralFilter(0.8, 0.6).to(x.device)
+        x = x.clone().requires_grad_(True)
+        y = mod(x)
+        (y * cot).sum().backward()
+        return y.detach(), x.grad, mod.spatial_sigma.grad, mod.color_sigma.grad
+
+    def cc(q, k, v, cot):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tcc.criss_cross_attention(*leaves)
+        (out * cot).sum().backward()
+        return (out.detach(), *(t.grad for t in leaves))
+
+    def legacy(img):
+        gen = torch.Generator().manual_seed(1)
+        embed = tl.OverlapPatchEmbed2D(3, 16, 7, 4, generator=gen).to(img.device).eval()
+        pos = tl.PosCNN2D(16, 1, generator=gen).to(img.device).eval()
+        mlp = tl.Mlp2D(16, 32, generator=gen).to(img.device).eval()
+        with torch.no_grad():
+            tokens, h, w = embed(img)
+            return tokens, mlp(pos(tokens, h, w))
+
+    def wavelets(x):
+        tw.register_wavelet("card_test_rot2", [0.6, 0.8], [-0.8, 0.6], [0.8, 0.6], [0.6, -0.8])
+        try:
+            coeffs = tw.wavedec3(x, "card_test_rot2", 2)
+            return coeffs[0], tw.waverec3(coeffs, "card_test_rot2")
+        finally:
+            tw._WAVELETS.pop("card_test_rot2")
+
+    vol4 = torch.randn(1, 10, 9, 8, 2, generator=g)
+    feats = torch.cat([torch.randn(300, 3, generator=g), 3 + torch.randn(200, 3, generator=g)])
+    # more voxels than a class's 4096 fitted rows, so the two fits differ
+    seeds = torch.full((16, 16, 24), -1, dtype=torch.int64)
+    seeds[:7], seeds[-3:] = 0, 1
+    gvol = torch.randn(16, 16, 24, 3, generator=g)
+    gvol[8:] += 3
+    return [
+        ("grid_pull", lambda v, c: tuple(ts.grid_pull(v, c, b, o) for o in range(4)
+                                         for b in ts.BOUND_MODES), (vol, crd), None),
+        ("grid_push_count", lambda uu, c: (ts.grid_push(uu, c, (12, 10, 9), "zero", 3),
+                                           ts.grid_count(c, (12, 10, 9), "reflect", 1)),
+         (u, crd), None),
+        ("grid_pull_grads", lambda v, c, uu: pull_grads(v, c, uu, 3), (vol, crd, u), 0),
+        ("spline_prefilter", lambda v: ts.spline_prefilter(v, 3), (vol,), None),
+        ("bilateral", lambda x, gd: (tb.bilateral_filter(x, 1.0, 0.5),
+                                     tb.joint_bilateral_filter(x, gd, 1.0, 0.5)),
+         (vol4, torch.randn(1, 10, 9, 8, 3, generator=g)), None),
+        ("trainable_bilateral", trainable, (vol4, torch.randn(1, 10, 9, 8, 2, generator=g)), 1),
+        ("gmm", lambda f, vv, s: (*tg.gmm_fit(f, 2, 20, seed=0), tg.gmm_segment(vv, s)),
+         (feats, gvol, seeds), None),
+        ("criss_cross", cc, tuple(torch.randn(2, 7, 6, c, generator=g) for c in (4, 4, 5, 5)), 1),
+        ("legacy2d", legacy, (torch.randn(2, 32, 28, 3, generator=g),), None),
+        ("wavelets", wavelets, (torch.randn(2, 8, 7, 6, 3, generator=g),), None),
+    ]
+
+
+@pytest.mark.cuda
+class TestAuxOpsOnCard:
+    @pytest.mark.parametrize("index", range(10))
+    def test_card_matches_cpu(self, cuda_device, index):
+        """Each auxiliary op (no kernel of the port on its path) on CUDA
+        tensors against the same call on CPU tensors: outputs on the card,
+        forwards and GMM parameters within 1e-4 of each output's largest
+        value, gradients within 1e-3 (the CPU tests' limits against JAX
+        widened 10× for the card's summation order, as in chip_smoke.py
+        phase 16: a bilateral sigma's gradient is a sum that cancels to
+        0.0123 at this size, 3.8e-4 apart); GMM labels equal on 99.9% of
+        the voxels (a label flips only at a likelihood tie)."""
+        name, fn, args, first = _aux_cases()[index]
+        want = fn(*args)
+        got = fn(*(a.to(cuda_device) for a in args))
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        assert len(got) == len(want)
+        for i, (gt, wt) in enumerate(zip(got, want)):
+            assert gt.is_cuda, name
+            if wt.dtype == torch.int64:
+                assert float((gt.cpu() == wt).float().mean()) >= 0.999, name
+            else:
+                limit = 1e-3 if first is not None and i >= first else 1e-4
+                assert _aux_rel(gt, wt) <= limit, (name, i, _aux_rel(gt, wt))

@@ -110,6 +110,18 @@ class TestWindow:
         tm = twin.window_unpartition_flat(torch.from_numpy(tw), ws, grid).numpy()
         np.testing.assert_array_equal(tm, jm)
 
+    @pytest.mark.parametrize("shape,ws", [((2, 8, 8, 8, 3), 4), ((1, 4, 8, 6, 2), 2),
+                                          ((1, 8, 8, 8, 5), 8)])
+    def test_unpartition_is_the_inverse_and_matches_jax(self, shape, ws):
+        """`window_unpartition` undoes `window_partition` exactly, where the
+        flat merge scrambles positions once there are several windows."""
+        x = _rand(shape, 4)
+        tw = twin.window_partition(torch.from_numpy(x), ws)
+        got = twin.window_unpartition(tw, ws, shape[1:4]).numpy()
+        want = np.asarray(jwin.window_unpartition(jnp.asarray(tw.numpy()), ws, shape[1:4]))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, x)
+
 
 class TestResize:
     @pytest.mark.parametrize("align_corners", [False, True])

@@ -1,4 +1,4 @@
-"""3D window partition and the reference's flat window merge.
+"""3D window partition, its inverse and the reference's flat window merge.
 
 Port of `waveformer_tpu/ops/window.py`, channels-last layout.
 """
@@ -17,6 +17,20 @@ def window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
     x = x.reshape(b, d // ws, ws, h // ws, ws, w // ws, ws, c)
     x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
     return x.reshape(-1, ws * ws * ws, c)
+
+
+def window_unpartition(
+    windows: torch.Tensor, window_size: int, grid: Tuple[int, int, int]
+) -> torch.Tensor:
+    """(B·nW, window_size³, C) → (B, D, H, W, C): the true inverse of
+    `window_partition`."""
+    d, h, w = grid
+    ws = window_size
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((d // ws) * (h // ws) * (w // ws))
+    x = windows.reshape(b, d // ws, h // ws, w // ws, ws, ws, ws, c)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return x.reshape(b, d, h, w, c)
 
 
 def window_unpartition_flat(

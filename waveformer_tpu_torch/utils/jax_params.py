@@ -281,3 +281,34 @@ def ssl_params_tree(state_dict: Mapping[str, torch.Tensor], num_heads: int) -> D
             node = node.setdefault(m, {})
         node.update({k: np.ascontiguousarray(a) for k, a in arrays.items()})
     return {"params": tree}
+
+
+# --------------------------------------------------------------------------- #
+# the legacy 2D modules (`models/legacy2d.py`) and the trainable bilateral
+# filter: the names are the flax modules'. Beyond the rules above:
+#   Conv2d (O, I/g, kH, kW)  ← conv kernel (kH, kW, I/g, O)
+# --------------------------------------------------------------------------- #
+
+
+def legacy2d_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax `{"params": ...}` (or the bare tree) of a `Mlp2D`, `DWConv2D`,
+    `OverlapPatchEmbed2D` or `PosCNN2D` → the port module's `state_dict`:
+    each Dense to a Linear, each conv to a Conv2d, the LayerNorm's scale to
+    its weight."""
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {}
+    for name, jp in p.items():
+        if "scale" in jp:
+            norm(sd, jp, name)
+        elif np.ndim(jp["kernel"]) == 2:
+            dense(sd, jp, name)
+        else:
+            sd[f"{name}.weight"] = _a(jp["kernel"]).transpose(3, 2, 0, 1).copy()
+            sd[f"{name}.bias"] = _a(jp["bias"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def bilateral_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `TrainableBilateralFilter`'s `params` ({"spatial_sigma",
+    "color_sigma"}) → the port module's `state_dict` (0-d fp32 tensors)."""
+    return {k: torch.tensor(_a(params[k])) for k in ("spatial_sigma", "color_sigma")}
