@@ -194,6 +194,23 @@ Phases, each of which must pass:
      bank against the Haar path, and a 4-tap bank raising ValueError. To
      iterate on it alone: `chip_smoke.run_aux_ops()` with TF32 off (no
      kernel build needed).
+ 17. the repository's drivers, each through its `main` with no `--device`
+     (so on the card): (a) `tools.bench_train --device-only` at the
+     flagship (bf16 on fp32 masters, 128³, batch 1), a warm-up step and 5
+     chained steps; (b) its pipeline mode, `Trainer` over 2 spawned loader
+     workers, 2 epochs of 4 steps on four synthetic (4, 150, 180, 145)
+     cases; (c) `tools.bench_tta --tta 1 2 --cases 1`; (d) the liver-CT
+     example driver (`examples.liver_ct`: preprocess, train, predict,
+     metrics) at `--cases 4 --epochs 1 --steps 3`. Gates: finite losses,
+     label maps and metrics of the right shapes, and exact launch counts
+     per design: 14 `tma_wgmma` attention and 10 `tma_ring` stencil
+     launches a bf16 flagship forward (a train step's forward, N forwards
+     a case at tta N), and for the example's tiny fp32 network its own
+     forward's `fma` and `vector` launches times its forwards (3 steps, 4
+     validation batches, the validation cases' windows). Phase 17's
+     launches count toward the kernels line. To iterate on it alone:
+     `chip_smoke.run_drivers(ac, dc)` from a guarded script after
+     `_build.LIBRARIES.build_all()` and TF32 off.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -395,6 +412,11 @@ AUX_GMM_SEEDS = (20000, 3000)  # seeded voxels of class 0 (outside) and 1 (insid
 AUX_CC = (2, 97, 97, 64, 512)  # CCNet's Cityscapes head: B, 769/8, 769/8, Cqk, Cv
 AUX_MIT_B2 = (2, 512, 3, 64, 256)  # batch, image side, in, stage-1 width, MLP hidden
 AUX_WAVELET = ((8, 64, 64, 64, 48), 3)  # the flagship's stage-1 input, DWT level 3
+# phase 17, the drivers: bench_train's chained steps after its warm-up; its
+# pipeline mode's (steps an epoch, epochs, loader workers); bench_tta's settings
+DRIVER_STEPS = 5
+DRIVER_PIPELINE = (4, 2, 2)
+DRIVER_TTA = (1, 2)
 
 
 def log(msg):
@@ -2672,6 +2694,136 @@ def run_aux_ops():
     return failed
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the repository's drivers (bench_train, bench_tta, an example)
+# --------------------------------------------------------------------------- #
+
+
+def design_counts(ac, dc):
+    return {"window_attention": dict(ac.design_launches), "dwconv3": dict(dc.design_launches)}
+
+
+def driver_row(name, line, forwards, ac, dc, per_forward, t0, **checks):
+    """One sub-phase's row: the tool's line, its launches against
+    `per_forward` launches of each design a forward over `forwards`
+    forwards, and its own `checks`. Returns (ok, launches by kernel)."""
+    counts = {"window_attention": ac.launches, "dwconv3": dc.launches}
+    got = design_counts(ac, dc)
+    want = {k: {d: n * forwards for d, n in per_forward[k].items()} for k in per_forward}
+    checks["launches"] = got == want
+    ok = all(checks.values())
+    log(json.dumps({"check": name, "seconds": time.time() - t0, "line": line,
+                    "forwards": forwards, "launches_by_design": got,
+                    "expected_by_design": want, "checks": checks, "ok": bool(ok)}))
+    return ok, counts
+
+
+def run_drivers(ac, dc):
+    """Phase 17: the port's `tools/bench_train.py` (device-only and pipeline
+    modes), `tools/bench_tta.py` and the liver-CT example driver, each
+    through its `main` at a short length, with exact launch counts per
+    design. Returns (failed sub-phases, launches by kernel)."""
+    from waveformer_tpu_torch import bench
+    from waveformer_tpu_torch.config import Config, load_config
+    from waveformer_tpu_torch.examples import liver_ct
+    from waveformer_tpu_torch.inference import SlidingWindowInferer
+    from waveformer_tpu_torch.models import create_waveformer
+    from waveformer_tpu_torch.tools import bench_train, bench_tta
+
+    failed, launches = [], {"window_attention": 0, "dwconv3": 0}
+    t_phase = time.time()
+    # the bf16 flagship's launches a forward, all on the TMA designs
+    flagship = {"window_attention": {"fma": 0, "tma_wgmma": 14},
+                "dwconv3": {"vector": 0, "tma_ring": 10}}
+
+    def add(name, result):
+        ok, counts = result
+        if not ok:
+            failed.append(name)
+        for k, n in counts.items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+
+    # (a) device-only: a warm-up step and DRIVER_STEPS chained steps
+    zero_counts(ac, dc)
+    t0 = time.time()
+    line = bench_train.main(["--device-only", "--steps", str(DRIVER_STEPS)])
+    add("bench_train_device_only", driver_row(
+        "bench_train_device_only", line, DRIVER_STEPS + 1, ac, dc, flagship, t0,
+        finite=bool(np.isfinite([line["loss_first"], line["loss_last"]]).all()),
+        timed=line["device_ms_per_step"] is not None and line["peak_mem_gib"] > 0))
+
+    # (b) pipeline mode: the Trainer over spawned loader workers
+    zero_counts(ac, dc)
+    t0 = time.time()
+    line = bench_train.main(["--steps", str(DRIVER_PIPELINE[0]), "--epochs",
+                             str(DRIVER_PIPELINE[1]), "--workers", str(DRIVER_PIPELINE[2])])
+    steps = DRIVER_PIPELINE[0] * DRIVER_PIPELINE[1]
+    add("bench_train_pipeline", driver_row(
+        "bench_train_pipeline", line, steps, ac, dc, flagship, t0,
+        finite=line["loss_count"] == steps and line["losses_finite"],
+        epochs=len(line["epoch_secs"]) == DRIVER_PIPELINE[1]))
+
+    # (c) bench_tta: per setting a warm-up case and 3 streams of the cases
+    zero_counts(ac, dc)
+    t0 = time.time()
+    lines, labels = bench_tta.main(["--tta", *map(str, DRIVER_TTA), "--cases", "1"])
+    per_case = {n: forwards_per_case(
+        SlidingWindowInferer(Config().prediction.patch_size, bench.SW_BATCH_SIZE, bench.OVERLAP,
+                             mirror_axes=bench_tta.AXES[n], tta_mode="patch",
+                             layout="channels_first"), bench.CASE_SHAPE[1:]) for n in DRIVER_TTA}
+    # a (4, 150, 180, 145) case is one batch of 8 windows an orientation
+    forwards = (1 + bench.N_STREAMS) * sum(per_case.values())
+    add("bench_tta", driver_row(
+        "bench_tta", lines, forwards, ac, dc, flagship, t0,
+        n_forwards_a_case_at_tta_n=per_case == {n: n for n in DRIVER_TTA},
+        labels=all(labels[n].shape == bench.CASE_SHAPE[1:] for n in DRIVER_TTA),
+        rates=all(np.isfinite(x["cases_per_s_chip"]) and x["cases_per_s_chip"] > 0
+                  for x in lines)))
+
+    # (d) the liver-CT example: preprocess, train, predict, metrics
+    with tempfile.TemporaryDirectory() as root:
+        workdir = os.path.join(root, "liver")
+        argv = ["--workdir", workdir, "--cases", "4", "--epochs", "1", "--steps", "3"]
+        # the tiny fp32 network's launches a forward, by design
+        os.makedirs(workdir)
+        cfg = load_config(liver_ct.write_config(workdir, os.path.join(workdir, "raw"), 1, 3))
+        model = create_waveformer(cfg.network.model_kwargs(), device="cuda", seed=SEED,
+                                  io_layout="channels_first")
+        zero_counts(ac, dc)
+        with torch.no_grad():
+            model(torch.zeros(1, 1, *cfg.network.img_size, device="cuda"))
+        per_forward = design_counts(ac, dc)
+        del model
+        zero_counts(ac, dc)
+        t0 = time.time()
+        results = liver_ct.main(argv)
+        with open(os.path.join(workdir, "data_list", cfg.split_path, "val_list.pkl"), "rb") as f:
+            val = pickle.load(f)
+        inferer = SlidingWindowInferer(cfg.prediction.patch_size, cfg.prediction.sw_batch_size,
+                                       cfg.prediction.overlap, mirror_axes=None,
+                                       tta_mode="patch", layout="channels_first")
+        predict_forwards = sum(
+            forwards_per_case(inferer, np.load(os.path.join(workdir, "fullres", v + ".npy"),
+                                               mmap_mode="r").shape[1:]) for v in val)
+        # 3 steps, then one validation of val_patches_per_epoch / batch_size batches
+        forwards = 3 + max(1, cfg.val_patches_per_epoch // cfg.batch_size) + predict_forwards
+        preds = [f for f in os.listdir(os.path.join(workdir, "predictions"))
+                 if f.endswith(".nii.gz")]
+        add("liver_ct_example", driver_row(
+            "liver_ct_example", {"metrics": results.tolist(), "val_cases": val,
+                                 "predict_forwards": predict_forwards},
+            forwards, ac, dc, per_forward, t0,
+            metrics=results.shape == (len(val), 2, 2) and bool(np.isfinite(results).all()),
+            predictions=len(preds) == len(val),
+            fp32_designs=per_forward["window_attention"]["tma_wgmma"] == 0
+            and per_forward["dwconv3"]["tma_ring"] == 0
+            and per_forward["window_attention"]["fma"] > 0 and per_forward["dwconv3"]["vector"] > 0))
+    log(json.dumps({"check": "drivers_phase", "seconds": time.time() - t_phase,
+                    "failed": failed}))
+    return failed, launches
+
+
 def bound(nbytes, t_ops_s):
     """(bound_ms, bound_by): the larger of the bytes at the HBM rate and the
     operations' time at their peak rate."""
@@ -3146,6 +3298,10 @@ def main():
         for name, n in mp_launches.items():
             launches[name] += n
     failed += run_aux_ops()
+    drivers_failed, driver_launches = run_drivers(ac, dc)
+    failed += drivers_failed
+    for name, n in driver_launches.items():
+        launches[name] += n
     for name, n in launches.items():
         if n == 0:
             failed.append(f"{name} never launched on its path")

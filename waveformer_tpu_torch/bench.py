@@ -47,9 +47,11 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def setup(cfg: Optional[Config] = None, device=None) -> Tuple[Waveformer, Predictor]:
-    """The protocol's seed-0 model and its predictor (channels-first, 8-way
-    patch TTA) on `device` (the CUDA device unless asked otherwise)."""
+def setup(cfg: Optional[Config] = None, device=None,
+          mirror_axes: Optional[Tuple[int, ...]] = MIRROR_AXES) -> Tuple[Waveformer, Predictor]:
+    """The protocol's seed-0 model and its predictor (channels-first, patch
+    TTA over `mirror_axes`: 8-way by default, none for None) on `device`
+    (the CUDA device unless asked otherwise)."""
     cfg = cfg or Config()
     dtype = compute_dtype(cfg)
     model = create_waveformer(cfg.network.model_kwargs(), dtype=dtype, device=device,
@@ -58,7 +60,7 @@ def setup(cfg: Optional[Config] = None, device=None) -> Tuple[Waveformer, Predic
         roi_size=cfg.prediction.patch_size,
         sw_batch_size=SW_BATCH_SIZE,
         overlap=OVERLAP,
-        mirror_axes=MIRROR_AXES,
+        mirror_axes=mirror_axes,
         layout="channels_first",
         tta_mode="patch",
     )
