@@ -15,7 +15,6 @@ import ast
 import functools
 import json
 import pathlib
-import time
 import types
 
 import jax
@@ -144,15 +143,6 @@ class TestRefusals:
 
 
 class TestProfiling:
-    def test_timer_sections(self):
-        t = profiling.Timer()
-        for _ in range(2):
-            with t.section("a"):
-                time.sleep(0.01)
-        s = t.summary()
-        assert s["a"]["count"] == 2 and s["a"]["total_s"] >= 0.02
-        assert "a" in t.report()
-
     def test_device_time_on_cpu_perturbs_the_first_argument(self):
         seen = []
 
@@ -165,11 +155,6 @@ class TestProfiling:
         assert dt > 0
         # one warm-up call on the input itself, then i·1e-6 on call i
         np.testing.assert_allclose(seen, [0.0, 0.0, 1e-6, 2e-6, 3e-6], rtol=1e-5)
-
-    def test_estimate_flops(self):
-        a, b = torch.randn(32, 16), torch.randn(16, 8)
-        assert profiling.estimate_flops(torch.mm, a, b) == 2 * 32 * 16 * 8
-        assert profiling.estimate_flops(lambda v: v + 1, a) is None  # nothing counted
 
     def test_trace_writes_a_chrome_trace(self, tmp_path):
         with profiling.trace(str(tmp_path)):

@@ -20,6 +20,7 @@ Geometry rides in the nnUNet-style `properties` dict
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -31,6 +32,7 @@ from waveformer_tpu_torch.ops.resize import resize_trilinear
 from waveformer_tpu_torch.parallel.collectives import shard_cases_for_eval
 from waveformer_tpu_torch.parallel.mesh import Mesh, make_mesh
 from waveformer_tpu_torch.utils import nifti
+from waveformer_tpu_torch.utils.profiling import span
 
 
 def largest_connected_component(seg: np.ndarray) -> np.ndarray:
@@ -55,7 +57,13 @@ def _crop_shape_key(properties: Dict) -> str:
 
 class Predictor:
     """End-to-end full-volume inference on one device (the CUDA
-    device unless `device` says otherwise)."""
+    device unless `device` says otherwise).
+
+    While a `torch.profiler` runs, each case's upload (host cast, pin, H2D
+    enqueue), dispatch (its device work enqueued) and read-back (the wait
+    and the D2H copy) are the spans `predictor.upload`,
+    `predictor.dispatch` and `predictor.readback`, which share the case's
+    id (`utils.profiling.span`)."""
 
     def __init__(
         self,
@@ -71,6 +79,7 @@ class Predictor:
         self.postprocess_largest_cc = postprocess_largest_cc
         self.upload_dtype = upload_dtype
         self.device = resolve_device(device)
+        self._cases = itertools.count()  # each case's id in its spans
 
     @property
     def channels_first(self) -> bool:
@@ -126,27 +135,34 @@ class Predictor:
         properties: Optional[Dict] = None,
     ) -> np.ndarray:
         """Volume → uint8 label map at the original geometry."""
-        return self._finish_case(
-            *self._start_case(volume, predictor_fn, out_channels, properties)
-        )
+        return self._read_back(*self._start_case(volume, predictor_fn, out_channels, properties))
 
     def _start_case(self, volume, predictor_fn, out_channels, properties):
         """Enqueue the device work of one case with no host sync: upload,
         TTA logits, resample to the crop, argmax. Returns the uint8 label
-        tensor (not yet materialised) and the properties."""
+        tensor (not yet materialised), the properties and the case's id."""
+        case = next(self._cases)
         if not (isinstance(volume, torch.Tensor) and volume.device == self.device):
-            volume = self.upload(volume, self.upload_dtype)
-        with torch.inference_mode():
+            with span("predictor.upload", case):
+                volume = self.upload(volume, self.upload_dtype)
+        with span("predictor.dispatch", case), torch.inference_mode():
             logits = self.predict_logits(volume, predictor_fn, out_channels)
             if properties is not None:
                 logits = self._resample(logits, properties)
             seg_dev = torch.argmax(logits, dim=0 if self.channels_first else -1)
             seg_dev = seg_dev.to(torch.uint8)
-        return seg_dev, properties
+        return seg_dev, properties, case
 
-    def _finish_case(self, seg_dev: torch.Tensor, properties) -> np.ndarray:
-        """Wait for the device result and apply the host-side geometry."""
-        seg = seg_dev.cpu().numpy()
+    def _read_back(self, seg_dev: torch.Tensor, properties, case) -> np.ndarray:
+        """Wait for the device result, copy it to the host and finish the
+        case there."""
+        with span("predictor.readback", case):
+            seg = seg_dev.cpu()
+        return self._finish_case(seg, properties)
+
+    def _finish_case(self, seg: torch.Tensor, properties) -> np.ndarray:
+        """Apply the host-side geometry to the label map read back."""
+        seg = seg.numpy()
         if properties is not None:
             seg = self.embed_to_original(seg, properties)
         if self.postprocess_largest_cc:
@@ -165,10 +181,10 @@ class Predictor:
             props = next(props_it) if props_it is not None else None
             started = self._start_case(vol, predictor_fn, out_channels, props)
             if pending is not None:
-                yield self._finish_case(*pending)
+                yield self._read_back(*pending)
             pending = started
         if pending is not None:
-            yield self._finish_case(*pending)
+            yield self._read_back(*pending)
 
     def predict_cases_sharded(
         self,

@@ -129,7 +129,8 @@ def main(argv=None) -> None:
 
     per_kernel = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # a step's spans (`utils.profiling.span`) also show as device ranges
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
             per_kernel.setdefault(evt.name, [0.0, 0])
             per_kernel[evt.name][0] += evt.time_range.elapsed_us() / 1e3
             per_kernel[evt.name][1] += 1

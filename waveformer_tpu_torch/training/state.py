@@ -66,6 +66,7 @@ from waveformer_tpu_torch.parallel.model_parallel import is_sharded
 from waveformer_tpu_torch.parallel.spatial import gather_depth
 from waveformer_tpu_torch.parallel.tensor_sharding import rows, shard_tensor, split_dim
 from waveformer_tpu_torch.training.schedules import Schedule, constant_schedule
+from waveformer_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -369,7 +370,12 @@ def make_train_step(
     tensor line the module must be armed by `shard_model` (after the
     state's masters were taken), and on a spatial line `loss_fn` is called
     with `spatial=` the line, over which it sums its volume statistics (the
-    port's losses take it)."""
+    port's losses take it).
+
+    While a `torch.profiler` runs, the forward (model and loss) is the
+    span `train_step.forward`, with device events (`utils.profiling`);
+    `backward_and_update` adds `train_step.backward` and
+    `train_step.optimizer`."""
     named = dict(model.named_parameters())
     reducer = make_reducer(mesh)
     kw = {}
@@ -383,8 +389,9 @@ def make_train_step(
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None):
-        logits = model(batch["data"], generator=generator)
-        loss = loss_fn(logits, batch["seg"], **kw)
+        with span("train_step.forward", device=True):
+            logits = model(batch["data"], generator=generator)
+            loss = loss_fn(logits, batch["seg"], **kw)
         norm, loss = backward_and_update(state, loss, named, model, reducer)
         return state, {"loss": loss, "grad_norm": norm}
 
@@ -401,22 +408,26 @@ def backward_and_update(state: TrainState, loss: torch.Tensor,
     fp32 gradients in the masters' order (assembled over the mesh's lines
     by `reducer`, with the loss), one optimizer step on the masters and the
     masters back into the module. Returns the unclipped global norm and
-    the (averaged) loss, detached, as device scalars."""
-    for p in named.values():
-        p.grad = None
-    loss.backward()
-    # a parameter the loss does not reach gets zeros, as its JAX gradient is
-    grads = [named[n].grad.float() if named[n].grad is not None
-             else torch.zeros_like(named[n], dtype=torch.float32) for n in state.params]
-    for p in named.values():
-        p.grad = None
+    the (averaged) loss, detached, as device scalars. The backward with the
+    gradients' list, and the rest, are the spans `train_step.backward` and
+    `train_step.optimizer` (`utils.profiling.span`, with device events)."""
+    with span("train_step.backward", device=True):
+        for p in named.values():
+            p.grad = None
+        loss.backward()
+        # a parameter the loss does not reach gets zeros, as its JAX gradient is
+        grads = [named[n].grad.float() if named[n].grad is not None
+                 else torch.zeros_like(named[n], dtype=torch.float32) for n in state.params]
+        for p in named.values():
+            p.grad = None
     loss = loss.detach()
-    tensor = None
-    if reducer is not None:
-        grads, loss = reducer(grads, loss, state.params)
-        tensor = reducer.mesh.tensor
-    norm = state.apply_gradients(grads)
-    state.copy_to(model, tensor)
+    with span("train_step.optimizer", device=True):
+        tensor = None
+        if reducer is not None:
+            grads, loss = reducer(grads, loss, state.params)
+            tensor = reducer.mesh.tensor
+        norm = state.apply_gradients(grads)
+        state.copy_to(model, tensor)
     return norm, loss
 
 
