@@ -13,7 +13,11 @@ Phases, each of which must pass:
      separate bias add its epilogue replaces); attention and the stencil
      also at every shape phases 14 and 15 give them (a tensor rank's heads
      and hidden channels, a spatial rank's windows and halo slabs, the 64³
-     flagship's 4³-token windows);
+     flagship's 4³-token windows); the stencil's backward kernels (dgrad on
+     the forward kernel with flipped taps, `wft_dwconv3_wgrad`) against the
+     plain composition at every shape in both dtypes, one launch of each on
+     the design the rule names, and at the main shapes their ms in bf16
+     beside the plain composition's and the bound;
   4. the flagship model on the card (kernels, fp32) against the same
      weights on the CPU (plain versions), batch 1 at 128³; then two more of
      the repository's configurations the same way, in the models' default
@@ -79,7 +83,8 @@ Phases, each of which must pass:
      128³, batch 2, bf16, built by `scripts.train.build_model`, 6 steps on
      one resident batch: the loss after 5 updates below the first, exactly
      14 `tma_wgmma` attention and 10 `tma_ring` stencil launches a forward
-     (the backward is the plain composition, as in JAX), device ms a step
+     and 10 `dgrad_tma_ring` and 10 `wgrad_tma_ring` backward launches a
+     step (none a validation forward), device ms a step
      by CUDA events and peak memory; (c) `scripts.train.main` on a
      temporary tree of 4 synthetic (4, 150, 180, 145) cases and a YAML
      config (roi 128³, batch 2, bf16, `train_fast` augmentation in 2
@@ -156,9 +161,11 @@ Phases, each of which must pass:
      MP_TRAIN_TOL (fp32 and bf16), the unclipped norm within 1e-4 relative
      in fp32, the ranks' masters bit-equal after the steps, exactly 14
      attention and 10 stencil launches a step on every rank on the dtype's
-     designs, and at spatial=2 a rank's fp32 peak at most 0.7× the one
-     process's. Each rank's seconds a step, forward and backward collective
-     bytes and the gradient assembly's device ms a line are printed. (c)
+     designs (and 10 dgrad and 10 wgrad launches of the stencil's backward,
+     `vector` in fp32, `tma_ring` in bf16), and at spatial=2 a rank's fp32
+     peak at most 0.7× the one process's. Each rank's seconds a step,
+     forward and backward collective bytes and the gradient assembly's
+     device ms a line are printed. (c)
      `Trainer(mesh=spatial=2)` on phase 10c's kind of tree (bf16, batch 2,
      the loader in the row lead's process, whose spawned workers would
      start up longer than the 2 steps take; patch validation and
@@ -560,9 +567,50 @@ def check_dwconv(dc):
             t_ops = 2 * 27 * elems / FP32_FLOPS * 1e3
             row["bound_ms"] = max(t_bytes, t_ops)
             row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        for dt in (torch.float32, torch.bfloat16):
+            good, row[f"backward_err_share_{str(dt).split('.')[1]}"] = check_dwconv_backward(
+                dc, x.to(dt), 0.2 * w, torch.randn(shape, device=dev, generator=g).to(dt))
+            ok &= good
+        if shape in DW_MAIN_SHAPES:
+            xx = x.to(torch.bfloat16)
+            gg = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+            wf = w.flip((0, 1, 2))
+            row["backward_kernel_ms"] = cuda_ms(lambda: dc.backward_kernels(xx, w, gg))
+            row["backward_dgrad_ms"] = cuda_ms(lambda: dc.dwconv3(gg, wf))
+            row["backward_wgrad_ms"] = row["backward_kernel_ms"] - row["backward_dgrad_ms"]
+            row["backward_plain_ms"] = cuda_ms(lambda: dc.dwconv3_backward(xx, w, gg), iters=3)
+            # dgrad reads g and writes dx, wgrad reads x and g (bf16); 2 × 27
+            # multiply-adds an element
+            elems = int(np.prod(shape))
+            t_bytes = (4 * elems * 2 + 2 * 28 * c * 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * 2 * 27 * elems / FP32_FLOPS * 1e3
+            row["backward_bound_ms"] = max(t_bytes, t_ops)
+            row["backward_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         log(json.dumps(row))
         rows.append(row)
     return ok, rows
+
+
+def check_dwconv_backward(dc, x, w, g):
+    """The backward kernels against `dwconv3_backward` on the same inputs,
+    one dgrad and one wgrad launch on the design `dc.design` names: fp32
+    sums in other orders, within 1e-5 of the terms' magnitudes (that
+    backward on |x|, |w|, |g|); dx also rounded once to x's dtype (2^-8 of
+    |dx| in bf16). Returns (ok, the worst error as a share of its bound)."""
+    name = dc.design(x.dtype, x.shape[-1])
+    before = dict(dc.backward_design_launches)
+    got = dc.backward_kernels(x, w, g)
+    torch.cuda.synchronize()
+    ok = dc.backward_design_launches == dict(
+        before, **{f"dgrad_{name}": before[f"dgrad_{name}"] + 1,
+                   f"wgrad_{name}": before[f"wgrad_{name}"] + 1})
+    want = dc.dwconv3_backward(x, w, g)
+    mag = dc.dwconv3_backward(x.abs(), w.abs(), g.abs())
+    rtol = (0.0 if x.dtype == torch.float32 else 2.0**-8, 0.0, 0.0)
+    worst = max(float(((a.float() - b).abs() / (r * b.abs() + 1e-5 * m + 1e-30)).max())
+                for a, b, m, r in zip(got, want, mag, rtol))
+    ok &= got[0].dtype == x.dtype and worst <= 1.0
+    return bool(ok), worst
 
 
 def check_flagship_vs_cpu(create_waveformer, Config, ac, dc):
@@ -878,8 +926,18 @@ logging:
 def zero_counts(*counters):
     for counter in counters:
         counter.launches = 0
-        for k in counter.design_launches:
-            counter.design_launches[k] = 0
+        for counts in (counter.design_launches, getattr(counter, "backward_design_launches", {})):
+            for k in counts:
+                counts[k] = 0
+
+
+def stencil_backward(name, calls):
+    """The stencil's `backward_design_launches` as `calls` dgrad and wgrad
+    launches on the design `name` and none on the other."""
+    from waveformer_tpu_torch.ops import dwconv_cuda as dc
+
+    return {f"{k}_{d}": calls if d == name else 0 for k in ("dgrad", "wgrad")
+            for d in dc.DESIGNS}
 
 
 def check_train_step_vs_cpu(create_waveformer, ac, dc):
@@ -911,14 +969,17 @@ def check_train_step_vs_cpu(create_waveformer, ac, dc):
     master_err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
     moved = max(float((p_cpu[k] - init[k].cpu()).abs().max()) for k in p_cpu)
     designs = {"window_attention": dict(ac.design_launches), "dwconv3": dict(dc.design_launches)}
+    backward = dict(dc.backward_design_launches)
     ok = (loss_rel <= TRAIN_STEP_TOL["loss_rel"] and norm_rel <= TRAIN_STEP_TOL["grad_norm_rel"]
           and master_err <= TRAIN_STEP_TOL["master_abs"] and ac.launches > 0
-          and dc.launches > 0 and np.isfinite(l_gpu) and np.isfinite(n_gpu))
+          and dc.launches > 0 and np.isfinite(l_gpu) and np.isfinite(n_gpu)
+          and backward == stencil_backward("vector", dc.launches))
     row = {"check": "train_step_card_vs_cpu_fp32", "config": "example_32", "batch": 2,
            "loss": [l_cpu, l_gpu], "loss_rel_err": loss_rel,
            "grad_norm": [n_cpu, n_gpu], "grad_norm_rel_err": norm_rel,
            "master_max_abs_err": master_err, "master_max_abs_update": moved,
-           "tolerances": TRAIN_STEP_TOL, "launches_by_design": designs, "ok": bool(ok)}
+           "tolerances": TRAIN_STEP_TOL, "launches_by_design": designs,
+           "stencil_backward_launches": backward, "ok": bool(ok)}
     log(json.dumps(row))
     return ok, designs
 
@@ -977,16 +1038,19 @@ def run_flagship_training(ac, dc):
     forwards = TRAIN_RESIDENT_STEPS + 1
     counts = {"window_attention": ac.launches, "dwconv3": dc.launches}
     designs = {"window_attention": dict(ac.design_launches), "dwconv3": dict(dc.design_launches)}
+    backward = dict(dc.backward_design_launches)
     ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
           and counts == {"window_attention": 14 * forwards, "dwconv3": 10 * forwards}
           and designs == {"window_attention": {"fma": 0, "tma_wgmma": 14 * forwards},
-                          "dwconv3": {"vector": 0, "tma_ring": 10 * forwards}})
+                          "dwconv3": {"vector": 0, "tma_ring": 10 * forwards}}
+          and backward == stencil_backward("tma_ring", 10 * forwards))
     row = {"check": "flagship_training_resident", "params": n_params, "batch": 2,
            "patch": [128, 128, 128], "dtype": "bfloat16", "steps": forwards,
            "losses": losses, "grad_norms": [float(x) for x in norms],
            "first_step_s": first_s, "device_ms_per_step": ms,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": counts, "launches_by_design": designs,
+           "stencil_backward_launches": backward,
            "launches_per_forward": {k: v / forwards for k, v in counts.items()}, "ok": bool(ok)}
     log(json.dumps(row))
     del model, state, step, batch, data, seg
@@ -1030,6 +1094,9 @@ def run_training_script(ac, dc, extra_args=()):
         ok &= counts == {"window_attention": 14 * forwards, "dwconv3": 10 * forwards}
         ok &= designs == {"window_attention": {"fma": 0, "tma_wgmma": 14 * forwards},
                           "dwconv3": {"vector": 0, "tma_ring": 10 * forwards}}
+        # a backward each training step, none at validation
+        backward = dict(dc.backward_design_launches)
+        ok &= backward == stencil_backward("tma_ring", 10 * 2 * TRAIN_STEPS_PER_EPOCH)
         with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
             scalars = [json.loads(line) for line in f]
         losses = [r["value"] for r in scalars if r["tag"] == "training_loss"]
@@ -1072,6 +1139,7 @@ def run_training_script(ac, dc, extra_args=()):
                "losses": losses, "best_mean_dice": trainer.best_mean_dice,
                "checkpoints": best + final, "logits_equal": equal,
                "launches": counts, "launches_by_design": designs,
+               "stencil_backward_launches": backward,
                "runtime_available": runtime.available(), "ok": bool(ok)}
         if reducer is not None:
             ms = reducer.device_ms()
@@ -1594,7 +1662,8 @@ def counter_snapshot():
 
     return {"window_attention": ac.launches, "dwconv3": dc.launches,
             "designs": {"window_attention": dict(ac.design_launches),
-                        "dwconv3": dict(dc.design_launches)}}
+                        "dwconv3": dict(dc.design_launches)},
+            "dwconv3_backward": dict(dc.backward_design_launches)}
 
 
 def parallel_batch():
@@ -1961,6 +2030,8 @@ def train_two_steps(mesh, dtype_name, side, workdir, tag):
             out["launches"] = {k: {d: n - before["designs"][k][d]
                                    for d, n in after["designs"][k].items()}
                                for k in ("window_attention", "dwconv3")}
+            out["backward_launches"] = {d: n - before["dwconv3_backward"][d]
+                                        for d, n in after["dwconv3_backward"].items()}
             if mesh is not None:
                 out["forward_bytes"] = mesh.traffic.bytes - traffic[0]
                 out["backward_bytes"] = mesh.traffic.backward_bytes - traffic[1]
@@ -2043,6 +2114,8 @@ def mp_trainers(rank, mesh, workdir):
                            for line in ("spatial",)}}
     after = counter_snapshot()
     out["launches"] = {k: after[k] - kernels[k] for k in ("window_attention", "dwconv3")}
+    out["backward_launches"] = {d: n - kernels["dwconv3_backward"][d]
+                                for d, n in after["dwconv3_backward"].items()}
     if mesh.is_main:
         trainer.ckpt.save_state(trainer.state, trainer.epoch)
     mesh.barrier()
@@ -2090,7 +2163,9 @@ def check_mp_trainers(ranks, launches):
             and all(r["reloaded"] == r["first"] for r in ranks)
             and all(r["reloaded_step"] == MP_TRAINER_STEPS for r in ranks)
             and per_rank[1] == {"window_attention": 14 * forwards, "dwconv3": 10 * forwards}
-            and per_rank[0]["window_attention"] > 14 * forwards)
+            and per_rank[0]["window_attention"] > 14 * forwards
+            and all(r["backward_launches"]
+                    == stencil_backward("tma_ring", 10 * MP_TRAINER_STEPS) for r in ranks))
     d_ok = (len({r["ssl_digest"] for r in ranks}) == 1
             and all(r["ssl_max_abs_err"] <= TRAIN_STEP_TOL["master_abs"] for r in ranks))
     entry = {
@@ -2099,6 +2174,7 @@ def check_mp_trainers(ranks, launches):
                     "masters_equal_across_ranks": len({r["first"] for r in ranks}) == 1,
                     "reloaded_equal": [r["reloaded"] == r["first"] for r in ranks],
                     "launches": per_rank, "best_mean_dice": ranks[0]["best"],
+                    "stencil_backward_launches": [r["backward_launches"] for r in ranks],
                     "assembly_ms": ranks[0]["assembly_ms"]},
         "ssl_trainer": {"ok": bool(d_ok),
                         "masters_equal_across_ranks": len({r["ssl_digest"] for r in ranks}) == 1,
@@ -2119,6 +2195,7 @@ def run_model_parallel_training():
                            "dwconv3": {"vector": 10, "tma_ring": 0}},
                "bfloat16": {"window_attention": {"fma": 0, "tma_wgmma": 14},
                             "dwconv3": {"vector": 0, "tma_ring": 10}}}
+    design = {"float32": "vector", "bfloat16": "tma_ring"}  # the stencil's backward
     runs = sorted({run for _, rs in MP_TRAIN_RUNS.values() for run in rs})
     with tempfile.TemporaryDirectory() as root:
         with open(os.path.join(root, "spec.json"), "w") as f:
@@ -2171,6 +2248,7 @@ def run_model_parallel_training():
                     "grad_norm_rel_err": abs(n1 - n0) / n0, "grad_norm_tol": norm_tol,
                     "masters_equal_across_ranks": len({r["masters_digest"] for r in rs}) == 1,
                     "launches_per_step": rs[0]["launches"],
+                    "stencil_backward_launches_per_step": rs[0]["backward_launches"],
                     "rank_step_s": [r["step_s"] for r in rs],
                     "one_process_step_s": one[run]["step_s"],
                     "rank_forward_bytes": [r["forward_bytes"] for r in rs],
@@ -2181,7 +2259,9 @@ def run_model_parallel_training():
                     "peak_ratio": max(peaks) / one[run]["peak_bytes"]}
                 good = (shares[worst] <= 1.0 and entry["grad_norm_rel_err"] <= norm_tol
                         and np.isfinite(l1) and entry["masters_equal_across_ranks"]
-                        and all(r["launches"] == designs[dtype_name] for r in rs))
+                        and all(r["launches"] == designs[dtype_name] for r in rs)
+                        and all(r["backward_launches"]
+                                == stencil_backward(design[dtype_name], 10) for r in rs))
                 if spec[1] > 1 and dtype_name == "float32":
                     entry["peak_ratio_limit"] = MODEL_PARALLEL_PEAK_RATIO
                     good &= entry["peak_ratio"] <= MODEL_PARALLEL_PEAK_RATIO

@@ -177,6 +177,115 @@ class TestDWConv3Designs:
         for dtype in (torch.float32, torch.bfloat16):
             for c in (4, 8, 20, 96, 192, 1536):
                 assert tdc.library_design(dtype, c) == tdc.design(dtype, c), (dtype, c)
+                assert tdc.library_design(dtype, c, wgrad=True) == tdc.design(dtype, c)
+
+
+# the five stencil shapes of a flagship training step at batch 4
+DW_TRAIN_B4 = [(4, 64, 64, 64, 192), (4, 64, 64, 64, 96), (4, 32, 32, 32, 384),
+               (4, 16, 16, 16, 768), (4, 8, 8, 8, 1536)]
+
+
+def _stencil_backward_inputs(device, shape, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, device=device, generator=g).to(dtype)
+    w = 0.2 * torch.randn(3, 3, 3, shape[-1], device=device, generator=g)
+    dout = torch.randn(shape, device=device, generator=g).to(dtype)
+    return x, w, dout
+
+
+def _assert_backward_close(got, x, w, dout):
+    """The kernels' (dx, dk, db) against `dwconv3_backward` in fp32 on the
+    same inputs. Both sum in fp32 in other orders: within 1e-5 of the sum of
+    the terms' magnitudes (that backward on |x|, |w|, |g|). dx is rounded
+    once to x's dtype by both sides: in bf16 half an ulp, 2^-8 of |dx|."""
+    want = tdc.dwconv3_backward(x, w, dout)
+    mag = tdc.dwconv3_backward(x.abs(), w.abs(), dout.abs())
+    rtol = 0.0 if x.dtype == torch.float32 else 2.0**-8
+    dx, dk, db = got
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    assert dk.dtype == db.dtype == torch.float32 and dk.shape == w.shape
+    for name, a, ref, m, r in (("dx", dx, want[0], mag[0], rtol), ("dk", dk, want[1], mag[1], 0.0),
+                               ("db", db, want[2], mag[2], 0.0)):
+        err = (a.float() - ref).abs()
+        bound = r * ref.abs() + 1e-5 * m + 1e-30
+        worst = float((err / bound).max())
+        assert worst <= 1.0, (name, worst, float(err.max()))
+
+
+@pytest.mark.cuda
+class TestDWConv3Backward:
+    """The stencil's backward kernels (dgrad on the forward kernel with the
+    taps flipped, `wft_dwconv3_wgrad`) against the plain composition."""
+
+    @pytest.mark.parametrize("shape", DW_TRAIN_B4)
+    def test_tma_ring_matches_plain(self, cuda_device, shape):
+        x, w, dout = _stencil_backward_inputs(cuda_device, shape, torch.bfloat16, 0)
+        before = dict(tdc.backward_design_launches)
+        got = tdc.backward_kernels(x, w, dout)
+        torch.cuda.synchronize()
+        assert tdc.backward_design_launches == dict(
+            before, dgrad_tma_ring=before["dgrad_tma_ring"] + 1,
+            wgrad_tma_ring=before["wgrad_tma_ring"] + 1)
+        _assert_backward_close(got, x, w, dout)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("c", [4, 12, 20])
+    def test_vector_matches_plain(self, cuda_device, dtype, c):
+        x, w, dout = _stencil_backward_inputs(cuda_device, (2, 6, 5, 7, c), dtype, c)
+        before = dict(tdc.backward_design_launches)
+        got = tdc.backward_kernels(x, w, dout)
+        torch.cuda.synchronize()
+        assert tdc.backward_design_launches == dict(
+            before, dgrad_vector=before["dgrad_vector"] + 1,
+            wgrad_vector=before["wgrad_vector"] + 1)
+        _assert_backward_close(got, x, w, dout)
+
+    @pytest.mark.parametrize("shape", [(2, 32, 32, 32, 192), (1, 3, 17, 9, 200),
+                                       (2, 8, 8, 8, 96), (1, 1, 1, 1, 64)])
+    def test_fp32_and_ragged_tiles(self, cuda_device, shape):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dout = _stencil_backward_inputs(cuda_device, shape, dtype, sum(shape))
+            _assert_backward_close(tdc.backward_kernels(x, w, dout), x, w, dout)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_halo_slab(self, cuda_device, dtype):
+        # a spatial=2 rank's (D/2 + 2)-plane slab: its gradient is zero on the
+        # two halo planes, which the model drops after the stencil
+        x, w, dout = _stencil_backward_inputs(cuda_device, (1, 34, 64, 64, 192), dtype, 7)
+        dout[:, 0] = 0
+        dout[:, -1] = 0
+        _assert_backward_close(tdc.backward_kernels(x, w, dout), x, w, dout)
+
+    @pytest.mark.parametrize("shape,dtype", [((4, 64, 64, 64, 96), torch.bfloat16),
+                                             ((4, 8, 8, 8, 1536), torch.bfloat16),
+                                             ((2, 16, 16, 16, 20), torch.float32)])
+    def test_bit_identical(self, cuda_device, shape, dtype):
+        x, w, dout = _stencil_backward_inputs(cuda_device, shape, dtype, 1)
+        first = tdc.backward_kernels(x, w, dout)
+        again = tdc.backward_kernels(x, w, dout)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+    @pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 96), (torch.float32, 96),
+                                         (torch.bfloat16, 12)])
+    @pytest.mark.parametrize("with_bias", [True, False])
+    def test_autograd_counts(self, cuda_device, dtype, c, with_bias):
+        x, w, dout = _stencil_backward_inputs(cuda_device, (2, 9, 8, 8, c), dtype, 3)
+        b = torch.randn(c, device=cuda_device) if with_bias else None
+        ins = [t.clone().requires_grad_(True) for t in (x, w) + ((b,) if with_bias else ())]
+        y = tdc.dwconv3(*ins)
+        fwd = (tdc.launches, dict(tdc.design_launches))
+        before = dict(tdc.backward_design_launches)
+        y.backward(dout)
+        torch.cuda.synchronize()
+        name = tdc.design(dtype, c)
+        assert (tdc.launches, tdc.design_launches) == fwd
+        assert tdc.backward_design_launches == dict(
+            before, **{f"dgrad_{name}": before[f"dgrad_{name}"] + 1,
+                       f"wgrad_{name}": before[f"wgrad_{name}"] + 1})
+        dx, dk, db = tdc.backward_kernels(x, w, dout, with_bias)
+        assert torch.equal(ins[0].grad, dx) and torch.equal(ins[1].grad, dk)
+        assert (db is None) == (not with_bias)
+        assert db is None or torch.equal(ins[2].grad, db)
 
 
 # the seven calls of a batch-8 flagship forward; ragged windows of the TMA

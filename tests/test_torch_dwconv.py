@@ -96,3 +96,58 @@ def test_wrong_bias_shape_raises(bias_shape):
 def test_wrong_kernel_shape_raises():
     with pytest.raises(ValueError):
         tdc.dwconv3(torch.zeros(1, 3, 3, 3, 16), torch.zeros(3, 3, 3, 8))
+
+
+# the backward's shapes on the CPU: C % 8 != 0 and sizes of 1 on D, H and W
+BACKWARD_SHAPES = [(1, 4, 5, 6, 8), (2, 3, 4, 5, 12), (1, 1, 4, 3, 20), (1, 5, 1, 4, 4),
+                   (2, 3, 4, 1, 16), (1, 1, 1, 1, 7), (1, 6, 5, 7, 96)]
+
+
+def _f64_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    x, g = (torch.from_numpy(rng.standard_normal(shape)) for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal((3, 3, 3, shape[-1])))
+    return x, w, g
+
+
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+def test_input_gradient_is_the_flipped_stencil(shape):
+    # the card's dgrad: the forward stencil of g with the taps flipped on all
+    # three axes; float64 sums of the same 27 terms in another order
+    x, w, g = _f64_inputs(shape, 4)
+    dx, _, _ = tdc.dwconv3_backward(x, w, g)
+    assert dx.dtype == torch.float64
+    want = tdc.dwconv3_reference(g, w.flip((0, 1, 2)))
+    torch.testing.assert_close(dx, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+def test_weight_gradients_match_autograd_f64(shape):
+    # what the card's wgrad sums: Σ over voxels of each tap's shifted x
+    # times g, and Σ g; against the autograd of `F.conv3d` in float64
+    x, w, g = _f64_inputs(shape, 5)
+    b = torch.zeros(shape[-1], dtype=torch.float64)
+    ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    tdc.dwconv3_reference(*ins).backward(g)
+    _, dk, db = tdc.dwconv3_backward(x, w, g)
+    torch.testing.assert_close(dk, ins[1].grad, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(db, ins[2].grad, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_cpu_backward_takes_the_plain_path(dtype, with_bias):
+    x, w, b = _inputs((1, 3, 4, 5, 12), 6)
+    xt = torch.from_numpy(x).to(dtype).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True) if with_bias else None
+    y = tdc.dwconv3(xt, wt, bt)
+    counts = (tdc.launches, dict(tdc.design_launches), dict(tdc.backward_design_launches))
+    g = torch.ones_like(y)
+    y.backward(g)
+    assert (tdc.launches, tdc.design_launches, tdc.backward_design_launches) == counts
+    want = tdc.dwconv3_backward(xt.detach(), wt.detach(), g)
+    assert torch.equal(xt.grad, want[0].to(dtype)) and torch.equal(wt.grad, want[1])
+    assert bt is None or torch.equal(bt.grad, want[2])
+    assert set(tdc.backward_design_launches) == set(tdc.BACKWARD_DESIGNS) == {
+        "dgrad_vector", "dgrad_tma_ring", "wgrad_vector", "wgrad_tma_ring"}

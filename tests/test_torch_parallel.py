@@ -498,8 +498,8 @@ def test_rank_gradients_average_to_the_batch_gradient_float64(rate):
     the two ranks' gradients (each on its row, drop-path masks from the
     same generator seed, `shard_drop_path`) equals the gradient of the
     whole batch's loss to 1e-8 of the largest gradient (float64 sums in
-    other orders, but the stencil's backward, `dwconv3_backward`, sums in
-    fp32: 1.8e-10 of it measured). In fp32 on the CPU a batch-1
+    other orders; the stencil's backward, `dwconv3_backward`, sums in the
+    inputs' float64 too). In fp32 on the CPU a batch-1
     backward sums some reductions less accurately than a batch-2 one
     (1e-3 relative at a near-constant InstanceNorm input, against the
     float64 result), which is why the fp32 comparison above holds the
