@@ -2,47 +2,38 @@
 never from the system under test: the yardstick of `mfu.*` and of the
 kernels' roofline shares.
 
-`model_counts(network, batch)` traces the plain reference once on the
-"meta" device (shapes only, no arithmetic): its forward's FLOPs by
-`torch.utils.flop_counter.FlopCounterMode`, and the shape of every
-window-attention and depthwise-stencil call. A training step is taken as
-three forwards (the backward of a product costs two: the input's gradient
-and the weight's); FlopCounterMode's own backward count is not used,
-because it counts a grouped convolution's backward without dividing by
-the groups (33× its forward at 32 channels).
+`model_counts(arch, network, batch)` asks the architecture's module
+(`port_bench/archs/`) once per configuration and batch for its forward's
+FLOPs (the plain reference traced on the "meta" device by
+`torch.utils.flop_counter.FlopCounterMode`: shapes only, no arithmetic) and
+the shape of every call that a roofline metric reads. A training step is
+taken as three forwards (the backward of a product costs two: the input's
+gradient and the weight's); FlopCounterMode's own backward count is not
+used, because it counts a grouped convolution's backward without dividing
+by the groups (33× its forward at 32 channels).
 """
 
 from __future__ import annotations
 
-import functools
 import json
-from typing import Dict, List, Tuple
-
-import torch
-from torch.utils.flop_counter import FlopCounterMode
-
-from port_bench.reference.model import build, set_probe
+from types import ModuleType
+from typing import Dict, Tuple
 
 BF16_BYTES = 2
 FP32_BYTES = 4
 
-
-@functools.lru_cache(maxsize=None)
-def _counts(network_json: str, batch: int) -> Tuple[int, Tuple]:
-    network = json.loads(network_json)
-    model = build(network, "meta")
-    x = torch.empty((batch, *network["img_size"], network["in_chans"]), device="meta")
-    calls: List = []
-    set_probe(model, calls)
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        model(x)
-    return counter.get_total_flops(), tuple(calls)
+# forward counts by (architecture, configuration, batch)
+_COUNTS: Dict[Tuple[str, str, int], Tuple[int, Tuple]] = {}
 
 
-def model_counts(network: Dict, batch: int = 1) -> Dict:
+def model_counts(arch: ModuleType, network: Dict, batch: int = 1) -> Dict:
     """{"forward_flops", "train_flops", "calls": [(kernel, shape), ...]} of
     one forward of `batch` patches."""
-    flops, calls = _counts(json.dumps(network, sort_keys=True), batch)
+    key = (arch.__name__, json.dumps(network, sort_keys=True), batch)
+    if key not in _COUNTS:
+        flops, calls = arch.forward_counts(network, batch)
+        _COUNTS[key] = (flops, tuple(calls))
+    flops, calls = _COUNTS[key]
     return {"forward_flops": flops, "train_flops": 3 * flops, "calls": list(calls)}
 
 

@@ -1,10 +1,17 @@
 """Kind `train`: the system's training step, `make_train_step(model,
-dice_ce_loss)` on the module cast to the compute dtype over fp32 masters
-(`master_params`), as `Trainer` runs it, back to back on a resident ring
-of batches. Step t draws its drop-path masks from a device generator
-seeded with (seed, t), as `Trainer` seeds one per step. The window runs
-steps until its seconds are up and reads the last loss back before the
-clock stops.
+dice_ce_loss, mesh)` on the module cast to the compute dtype over fp32
+masters (`master_params`), as `Trainer` runs it, back to back on a
+resident ring of batches. Step t draws its drop-path masks from a device
+generator seeded with (seed, t), as `Trainer` seeds one per step. The
+window runs steps until its seconds are up and reads the last loss back
+before the clock stops.
+
+On a cell of more than one card every rank runs this, as a job that
+`torchrun` starts: the mesh is `make_mesh()` over the process group, every
+rank on `data`, and the step's `GradientReducer` averages the fp32
+gradients and the loss over the ranks before the clip. Each rank's ring
+comes from the seed and its rank; the global batch is `batch` times the
+ranks. Rank 0's clock paces the window, so every rank runs the same steps.
 
 Set-up builds the one training object, drives it through its first
 `CHECK_STEPS` steps on the ring's first batches (every row a different
@@ -16,24 +23,30 @@ same object takes one more step through the window's own call, from the
 state the window left: its loss and the masters' change are kept, with
 that state (masters, AdamW's moments and count).
 
-The check runs the reference's steps from the same state dict, batches
-and masks, and the reference's one step from the state the window left
-(there it follows the program from the program's own state). The numbers
-a cell compares (its limits name them), each the worst over its items:
+The check makes the batches again from the seed and runs the reference's
+steps from the same state dict, batches and masks, and the reference's one
+step from the state the window left (there it follows the program from the
+program's own state); on more than one card each rank runs its shard of
+each global batch and the shards are summed, as DDP defines the step. The
+numbers a cell compares (its limits name them), each the worst over its
+items:
   loss_gap:   |loss − reference| / |reference| over the first steps;
   grad_gap:   |‖g‖ − ‖g_ref‖| / max(‖g_ref‖, median leaf's ‖g_ref‖) over
               the parameters, for the first gradient;
   change_gap: the same for each parameter's change over the first steps;
   last_loss_gap, last_change_gap: loss_gap and change_gap of the step
-              after the window.
+              after the window;
+  rank_gap:   (more than one card) the largest difference of any rank's
+              fp32 masters from rank 0's after that step: replicas that
+              data parallelism keeps equal.
 A parameter whose reference gradient (of the first step, or of the step
 after the window) is under a thousandth of the median parameter's is left
 out of the changes and the gradient (its gradient is zero but for
 rounding, as for a bias before an InstanceNorm, and AdamW moves it by
 ±lr whatever the rounding).
 
-Traffic keys: `batch`, `ring` (batches, ≥ CHECK_STEPS), `trace_units` (steps
-in a traced window).
+Traffic keys: `batch` (a rank's), `ring` (batches, ≥ CHECK_STEPS),
+`trace_units` (steps in a traced window).
 """
 
 from __future__ import annotations
@@ -47,8 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from port_bench import seeds
-from port_bench.reference import model as ref_model
-from port_bench.reference.lowp import fp8_round
+from port_bench.reference.lowp import fp8_round, plain_precision
 from port_bench.reference.train import AdamW, run_steps, step_seed
 from port_bench.serving import DTYPES
 from port_bench.trace import LOSS_SPAN, Span
@@ -57,14 +69,15 @@ CHECK_STEPS = 3
 
 
 def make_batches(ctx) -> List[Dict[str, torch.Tensor]]:
-    """The ring: unit-normal channels-last volumes with a class-dependent
-    offset, and label maps from a smooth random field, each row with its
-    own class proportions and a cube of every class."""
-    net, t = ctx.config["network"], ctx.traffic
-    k, c, size = net["out_chans"], net["in_chans"], tuple(net["img_size"])
+    """This rank's ring: unit-normal channels-last volumes with a
+    class-dependent offset, and label maps from a smooth random field, each
+    row with its own class proportions and a cube of every class."""
+    t = ctx.traffic
+    c, k, size = ctx.arch.io(ctx.config["network"])
     b, ring = int(t["batch"]), int(t["ring"])
     gen = torch.Generator(device=ctx.device)
-    gen.manual_seed(seeds.derive(ctx.seed, "batches"))
+    gen.manual_seed(seeds.derive(ctx.seed, "batches" if ctx.ranks.world == 1
+                                 else f"batches.{ctx.ranks.rank}"))
     dev = ctx.device
     coarse = tuple(max(s // 16, 1) for s in size)
     field = torch.randn((ring * b, k, *coarse), generator=gen, device=dev)
@@ -91,25 +104,27 @@ def half_batch_loss(loss_fn):
 
 class Workload:
     def __init__(self, ctx, loss_fault=None):
-        from waveformer_tpu_torch.models import create_waveformer
+        from waveformer_tpu_torch.parallel.mesh import make_mesh
         from waveformer_tpu_torch.training.losses import dice_ce_loss
         from waveformer_tpu_torch.training.state import (
             TrainState, make_optimizer, make_train_step, master_params)
 
         self.ctx = ctx
         cfg, opt = ctx.config, ctx.config["optimizer"]
-        model = create_waveformer(cfg["network"], dtype=torch.float32, device=ctx.device)
+        model = ctx.arch.system(cfg["network"], torch.float32, ctx.device)
         model.load_state_dict(ctx.state_dict)
         model.train()
         tx = make_optimizer(opt["lr"], opt["weight_decay"], opt["grad_clip_norm"])
         self.state = TrainState.create(master_params(model, DTYPES[cfg["compute_dtype"]]), tx)
         self.loss = Span(LOSS_SPAN, loss_fault(dice_ce_loss) if loss_fault else dice_ce_loss)
-        self.step = make_train_step(model, self.loss)
+        self.step = make_train_step(model, self.loss,
+                                    make_mesh() if ctx.ranks.world > 1 else None)
         self.model = model
         self.batches = make_batches(ctx)
         self.gen = torch.Generator(device=ctx.device)
         self.drop_seed = seeds.derive(ctx.seed, "drop_path")
         self.done = 0
+        self.expected = None
         losses = []
         for t in range(CHECK_STEPS):
             losses.append(self._one()["loss"])
@@ -130,56 +145,73 @@ class Workload:
 
     def window(self, seconds=None, units=None):
         self.loss.calls = self.loss.rows = 0
+        go = self.ctx.ranks.pace(seconds, units)
         t0 = time.perf_counter()
-        deadline = None if seconds is None else t0 + seconds
         n, m = 0, None
-        while (units is None or n < units) and (deadline is None or time.perf_counter() < deadline):
+        while go(n):
             m = self._one()
             n += 1
         last = float(m["loss"])  # waits for every step of the window
         elapsed = time.perf_counter() - t0
-        b = int(self.ctx.traffic["batch"])
+        b = int(self.ctx.traffic["batch"]) * self.ctx.ranks.world
         ok = last == last and abs(last) != float("inf")
-        return {"attempted": n, "completed": n if ok else 0, "failed": 0 if ok else n,
-                "elapsed_s": elapsed, "steps": n, "samples": n * b, "forwards": n,
-                "patches": n * b}
+        out = {"attempted": n, "completed": n if ok else 0, "failed": 0 if ok else n,
+               "elapsed_s": elapsed, "steps": n, "samples": n * b, "forwards": n,
+               "patches": n * b}
+        reducer = self.step.reducer
+        if reducer is not None and self.ctx.device.type == "cuda":
+            out["allreduce_ms"] = reducer.device_ms("data")[-n:]
+        return out
 
     def release(self):
         """Take the step after the window, then free the system's state."""
         s = self.state
         names = list(s.params)
         before = {n: p.detach().clone() for n, p in s.params.items()}
-        self.last = {"step": s.step, "batch": self.batches[self.done % len(self.batches)],
+        self.last = {"step": s.step, "index": self.done % len(self.batches),
                      "params": before, "count": s.opt_state.count,
                      "mu": dict(zip(names, (m.clone() for m in s.opt_state.mu))),
                      "nu": dict(zip(names, (v.clone() for v in s.opt_state.nu)))}
         self.last["loss"] = float(self._one()["loss"])
         self.last["change"] = {n: p.detach() - before[n] for n, p in s.params.items()}
-        self.model = self.state = self.step = None
+        self.rank_gap = self.ctx.ranks.gap_to_rank0(
+            torch.cat([p.detach().reshape(-1) for p in s.params.values()]))
+        self.model = self.state = self.step = self.batches = None
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
 
+    def _expected(self) -> List[Dict[str, torch.Tensor]]:
+        """This rank's ring, made again from the seed for the reference."""
+        if self.expected is None:
+            self.expected = make_batches(self.ctx)
+        return self.expected
+
+    def _shard(self):
+        r = self.ctx.ranks
+        return (r.rank, r.world, r.gather) if r.world > 1 else None
+
     def _reference(self, rounding=None) -> Dict:
         ctx, opt = self.ctx, self.ctx.config["optimizer"]
-        model = ref_model.build(ctx.config["network"], ctx.device)
+        model = ctx.arch.build(ctx.config["network"], ctx.device)
         model.load_state_dict(ctx.state_dict)
         if rounding is not None:
-            ref_model.set_rounding(model, rounding)
+            ctx.arch.set_rounding(model, rounding)
         adamw = AdamW(list(model.parameters()), opt["lr"], opt["weight_decay"],
                       opt["grad_clip_norm"])
-        with ref_model.plain_precision():
-            out = run_steps(model, self.batches[:CHECK_STEPS], self.drop_seed, adamw)
+        with plain_precision():
+            out = run_steps(model, self._expected()[:CHECK_STEPS], self.drop_seed, adamw,
+                            ctx.arch, shard=self._shard())
         return {"losses": out["losses"], "grads": out["first_grads"],
                 "params": {n: p.detach() for n, p in model.named_parameters()}}
 
     def _last_reference(self, rounding=None) -> Dict:
         """The reference's step from the state the window left."""
         ctx, opt, last = self.ctx, self.ctx.config["optimizer"], self.last
-        model = ref_model.build(ctx.config["network"], ctx.device)
+        model = ctx.arch.build(ctx.config["network"], ctx.device)
         model.load_state_dict(ctx.state_dict)
         if rounding is not None:
-            ref_model.set_rounding(model, rounding)
+            ctx.arch.set_rounding(model, rounding)
         named = dict(model.named_parameters())
         with torch.no_grad():
             for n, p in named.items():
@@ -189,15 +221,18 @@ class Workload:
         adamw.mu = [last["mu"][n].clone() for n in named]
         adamw.nu = [last["nu"][n].clone() for n in named]
         adamw.count = last["count"]
-        with ref_model.plain_precision():
-            out = run_steps(model, [last["batch"]], self.drop_seed, adamw,
-                            first_step=last["step"])
+        with plain_precision():
+            out = run_steps(model, [self._expected()[last["index"]]], self.drop_seed, adamw,
+                            ctx.arch, first_step=last["step"], shard=self._shard())
         return {"loss": out["losses"][0], "grads": out["first_grads"],
                 "change": {n: p.detach() - last["params"][n] for n, p in named.items()}}
 
     def check(self) -> Dict[str, float]:
-        return {**compare(self.program, self._reference(), self.ctx.state_dict),
-                **compare_last(self.last, self._last_reference())}
+        out = {**compare(self.program, self._reference(), self.ctx.state_dict),
+               **compare_last(self.last, self._last_reference())}
+        if self.ctx.ranks.world > 1:
+            out["rank_gap"] = self.rank_gap
+        return out
 
     def control(self) -> Dict[str, float]:
         """The check's numbers for the reference in float8 in the system's

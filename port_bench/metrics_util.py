@@ -26,6 +26,6 @@ def kernel_share(run, kernel: str, names) -> float:
     if device <= 0:
         return None
     batch = w["patches"] // w["forwards"]
-    calls = flops.model_counts(run.config["network"], batch)["calls"]
+    calls = flops.model_counts(run.arch, run.config["network"], batch)["calls"]
     bound = flops.bound_seconds(kernel, calls, peak["bf16_flops"], peak["hbm_bytes"])
     return 100.0 * bound * w["forwards"] / device

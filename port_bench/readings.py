@@ -12,7 +12,8 @@ Each seed sets up the cell as a run does, runs its traffic for S seconds
             place, judged by the float32 reference;
   fault:    (training cells) the system with the loss of half of each
             batch only.
-One JSON line per reading on standard output.
+One JSON line per reading on standard output. A cell on more than one card
+runs every reading on all its cards, one process a card, as a run does.
 """
 
 from __future__ import annotations
@@ -24,17 +25,18 @@ import time
 
 import torch
 
-from port_bench import weights
+from port_bench.ranks import Ranks, launch
 from port_bench.registry import Registry
-from port_bench.run import ROOT, Context, host_threads
+from port_bench.run import ROOT, Context, build_kernels, host_threads
 
 
-def reading(reg, cell, seed, seconds, what, device):
+def reading(reg, cell, seed, seconds, what, device, ranks=None):
     t0 = time.perf_counter()
     entry = reg.cell(cell)
     config, traffic = reg.config(entry["config"]), reg.traffic(entry["traffic"])
-    ctx = Context(device, seed, config, traffic)
-    ctx.state_dict = weights.make_state_dict(config["network"], seed, device)
+    arch = reg.arch(config)
+    ctx = Context(device, seed, config, traffic, arch, ranks=ranks or Ranks())
+    ctx.state_dict = arch.make_state_dict(config["network"], seed, device)
     host_threads(traffic)
     kind = reg.kind(traffic["kind"])
     kw = {"loss_fault": kind.half_batch_loss} if what == "fault" else {}
@@ -46,6 +48,18 @@ def reading(reg, cell, seed, seconds, what, device):
             "completed": window["completed"], "seconds": time.perf_counter() - t0}
 
 
+def read_all(ranks, device, cell, seconds, plan):
+    """Every reading of `plan` ((what, seeds), ...) on this rank; rank 0
+    prints each."""
+    reg = Registry(ROOT)
+    build_kernels(device)
+    for what, seeds in plan:
+        for seed in seeds:
+            line = reading(reg, cell, seed, seconds, what, device, ranks)
+            if ranks.rank == 0:
+                print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -54,19 +68,17 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--fault-seeds", type=int, nargs="*", default=[])
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("readings: no CUDA device", file=sys.stderr)
+    chips = Registry(ROOT).cell(args.workload)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"readings: the cell needs {chips} CUDA device(s)", file=sys.stderr)
         return 2
-    from waveformer_tpu_torch.ops import _build
-
-    _build.LIBRARIES.build_all()
-    reg = Registry(ROOT)
-    device = torch.device("cuda", 0)
-    for what, seeds in (("program", args.seeds), ("control", args.control_seeds),
-                        ("fault", args.fault_seeds)):
-        for seed in seeds:
-            print(json.dumps(reading(reg, args.workload, seed, args.seconds, what, device)),
-                  flush=True)
+    plan = (("program", args.seeds), ("control", args.control_seeds),
+            ("fault", args.fault_seeds))
+    if chips == 1:
+        read_all(Ranks(), torch.device("cuda", 0), args.workload, args.seconds, plan)
+    else:
+        build_kernels(torch.device("cuda"))
+        launch(chips, "cuda", read_all, (args.workload, args.seconds, plan), deadline_s=3300)
     return 0
 
 

@@ -1,7 +1,7 @@
 """Plain WaveFormer: the benchmark's frozen reference of the model.
 
 Every operation is a plain PyTorch call in the dtype of the input (float32
-as the benchmark runs it, with TF32 off: `plain_precision`). No kernel of
+as the benchmark runs it, with TF32 off: `lowp.plain_precision`). No kernel of
 the system under test, no cache, no batching tricks. The module tree and
 its parameter names are the reference `state_dict` keys (the WaveFormer
 paper's code, arXiv 2503.23764: `network_models/waveformer.py`,
@@ -24,7 +24,6 @@ Two seams serve the benchmark, both off by default:
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -34,19 +33,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 DETAIL_KEYS = ("aad", "ada", "add", "daa", "dad", "dda", "ddd")
-
-
-@contextlib.contextmanager
-def plain_precision():
-    """float32 products in float32: TF32 off for matmuls and cuDNN, restored
-    afterwards."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:

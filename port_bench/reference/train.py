@@ -5,18 +5,23 @@ float32 parameters, written for the benchmark.
 The loss of a batch is the mean of its samples' losses (Dice per sample
 and class, then the mean; cross-entropy the mean over every voxel), so the
 step runs one sample at a time and sums each sample's gradient divided by
-the batch: the same gradient, in a fraction of the memory.
+the batch: the same gradient, in a fraction of the memory. Under data
+parallelism a step is DDP's: each rank computes its shard of the global
+batch on its own card, the shards' gradients and losses are summed in rank
+order, then every rank takes the same clip and AdamW.
+The model's stochastic depth comes from its architecture's module
+(`port_bench/archs/`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import functools
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from port_bench.reference.model import Waveformer, draw_drop_masks, set_drop_masks
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -67,13 +72,23 @@ class AdamW:
         return grads
 
 
-def run_steps(model: Waveformer, batches: Sequence[Dict[str, torch.Tensor]], seed: int,
-              optimizer: AdamW, first_step: int = 0) -> Dict[str, object]:
+# (rank, world, gather): gather(flat) is every rank's `flat`, in rank order
+Shard = Tuple[int, int, Callable[[torch.Tensor], List[torch.Tensor]]]
+
+
+def run_steps(model: torch.nn.Module, batches: Sequence[Dict[str, torch.Tensor]], seed: int,
+              optimizer: AdamW, arch: ModuleType, first_step: int = 0,
+              shard: Optional[Shard] = None) -> Dict[str, object]:
     """Train `model` (float32, its parameters the masters) one step per
     batch, counting steps from `first_step`. Step t draws its drop-path
-    masks from a generator on the batch's device seeded with
-    `step_seed(seed, t)`. Returns each step's loss and the first step's
-    clipped gradients by parameter name."""
+    masks (`arch.draw_drop_masks`) from a generator on the batch's device
+    seeded with `step_seed(seed, t)`. With `shard`, each batch is this
+    rank's rows of a global batch of `world` times as many: the masks are
+    the global batch's, each sample's gradient is divided by the global
+    batch, and the ranks' gradients and losses are summed in rank order.
+    Returns each step's loss and the first step's clipped gradients by
+    parameter name."""
+    rank, world, gather = shard or (0, 1, None)
     named = dict(model.named_parameters())
     params = list(named.values())
     losses, first = [], None
@@ -83,18 +98,21 @@ def run_steps(model: Waveformer, batches: Sequence[Dict[str, torch.Tensor]], see
         b = data.shape[0]
         gen = torch.Generator(device=data.device)
         gen.manual_seed(step_seed(seed, t))
-        masks = draw_drop_masks(model, b, gen, data.device)
+        masks = arch.draw_drop_masks(model, b * world, gen, data.device)
         for p in params:
             p.grad = None
         loss = 0.0
         for i in range(b):
-            set_drop_masks(model, [tuple(None if m is None else m[i:i + 1] for m in pair)
-                                   for pair in masks])
-            li = dice_ce(model(data[i:i + 1]), seg[i:i + 1]) / b
+            j = rank * b + i
+            arch.set_drop_masks(model, [tuple(None if m is None else m[j:j + 1] for m in pair)
+                                        for pair in masks])
+            li = dice_ce(model(data[i:i + 1]), seg[i:i + 1]) / (b * world)
             li.backward()
             loss += float(li.detach())
-        set_drop_masks(model, None)
+        arch.set_drop_masks(model, None)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if gather is not None:
+            grads, loss = _summed(grads, loss, gather)
         clipped = optimizer.step(params, grads)
         if first is None:
             first = {n: g.detach().clone() for n, g in zip(named, clipped)}
@@ -102,3 +120,11 @@ def run_steps(model: Waveformer, batches: Sequence[Dict[str, torch.Tensor]], see
     for p in params:
         p.grad = None
     return {"losses": losses, "first_grads": first}
+
+
+def _summed(grads: List[torch.Tensor], loss: float, gather) -> Tuple[List[torch.Tensor], float]:
+    """Every rank's gradients and loss, summed in rank order."""
+    flat = functools.reduce(torch.add, gather(torch.cat([g.reshape(-1) for g in grads])))
+    parts = torch.split(flat, [g.numel() for g in grads])
+    losses = gather(torch.tensor([loss], dtype=torch.float64, device=flat.device))
+    return [p.view_as(g) for p, g in zip(parts, grads)], sum(float(x) for x in losses)

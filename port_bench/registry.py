@@ -1,6 +1,9 @@
 """Where the benchmark finds its parts, by the names `BENCHMARK.json` gives.
 
   configs:   the `file` of the configuration's entry (JSON)
+  archs:     port_bench/archs/<arch>.py for a configuration whose `arch`
+             key is <arch> ("waveformer" without the key): everything the
+             harness knows of one model (its module's docstring)
   traffic:   port_bench/traffic/<traffic>.json, a data file whose `kind`
              names the general driver port_bench/kinds/<kind>.py
   cell:      port_bench/workloads/<cell>.json, the limits of its check
@@ -18,6 +21,13 @@ import json
 import os
 from types import ModuleType
 from typing import Dict, List
+
+DEFAULT_ARCH = "waveformer"
+
+
+class UnknownArch(KeyError):
+    """A configuration names an architecture that has no module."""
+
 
 class Registry:
     """The parts of the benchmark in the checkout at `root`."""
@@ -67,6 +77,12 @@ class Registry:
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         return module
+
+    def arch(self, config: Dict) -> ModuleType:
+        name = config.get("arch", DEFAULT_ARCH)
+        if not os.path.exists(os.path.join(self.pkg, "archs", f"{name}.py")):
+            raise UnknownArch(f"no architecture {name!r}: port_bench/archs/{name}.py is missing")
+        return self.module("archs", name)
 
     def kind(self, name: str) -> ModuleType:
         return self.module("kinds", name)

@@ -19,8 +19,7 @@ import numpy as np
 import torch
 
 from port_bench import seeds
-from port_bench.reference import model as ref_model
-from port_bench.reference.lowp import fp8_round
+from port_bench.reference.lowp import fp8_round, plain_precision
 from port_bench.reference.serve import predict_logits, widest_gap
 from port_bench.trace import MODEL_SPAN, Span
 
@@ -38,12 +37,11 @@ class Served:
 
     def __init__(self, ctx):
         from waveformer_tpu_torch.inference import Predictor, SlidingWindowInferer
-        from waveformer_tpu_torch.models import create_waveformer
 
         cfg, serving = ctx.config, ctx.config["serving"]
         dtype = DTYPES[cfg["compute_dtype"]]
-        self.model = create_waveformer(cfg["network"], dtype=dtype, device=ctx.device,
-                                       io_layout="channels_first")
+        self.model = ctx.arch.system(cfg["network"], dtype, ctx.device,
+                                     io_layout="channels_first")
         self.model.load_state_dict(ctx.state_dict)
         inferer = SlidingWindowInferer(
             roi_size=serving["roi"], sw_batch_size=serving["sw_batch_size"],
@@ -51,7 +49,7 @@ class Served:
             layout="channels_first", tta_mode="patch")
         self.predictor = Predictor(inferer, upload_dtype=dtype, device=ctx.device)
         self.span = Span(MODEL_SPAN, self.model)
-        self.out_channels = cfg["network"]["out_chans"]
+        self.out_channels = ctx.arch.io(cfg["network"])[1]
 
     def release(self) -> None:
         self.model = self.predictor = self.span = None
@@ -85,19 +83,19 @@ def sample(ctx, served: Dict[int, np.ndarray], ring: int) -> List[int]:
 
 def reference(ctx, rounding=None):
     """The float32 reference model, or the control with `rounding`."""
-    model = ref_model.build(ctx.config["network"], ctx.device)
+    model = ctx.arch.build(ctx.config["network"], ctx.device)
     model.load_state_dict(ctx.state_dict)
     model.eval()
     if rounding is not None:
-        ref_model.set_rounding(model, rounding)
+        ctx.arch.set_rounding(model, rounding)
     return model
 
 
 def reference_logits(ctx, model, volume: np.ndarray) -> torch.Tensor:
     serving = ctx.config["serving"]
     vol = torch.from_numpy(volume).to(ctx.device)
-    with torch.no_grad(), ref_model.plain_precision():
-        return predict_logits(model, vol, ctx.config["network"]["out_chans"], serving["roi"],
+    with torch.no_grad(), plain_precision():
+        return predict_logits(model, vol, ctx.arch.io(ctx.config["network"])[1], serving["roi"],
                               serving["overlap"], int(ctx.traffic["check_batch"]),
                               mirror_axes(ctx.traffic["tta"]) or ())
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from port_bench import run, weights
+from port_bench import run
 from port_bench.registry import Registry
 from port_bench.tests import tiny
 
@@ -24,8 +24,9 @@ def root(tmp_path):
 def _workload(root, cell, seed, **kw):
     reg = Registry(root)
     entry = reg.cell(cell)
-    ctx = run.Context(CPU, seed, reg.config(entry["config"]), reg.traffic(entry["traffic"]))
-    ctx.state_dict = weights.make_state_dict(ctx.config["network"], seed, CPU)
+    config = reg.config(entry["config"])
+    ctx = run.Context(CPU, seed, config, reg.traffic(entry["traffic"]), reg.arch(config))
+    ctx.state_dict = ctx.arch.make_state_dict(config["network"], seed, CPU)
     return reg.kind(ctx.traffic["kind"]).Workload(ctx, **kw)
 
 

@@ -9,7 +9,8 @@ import os
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from port_bench import flops, peaks, weights
+from port_bench import flops, peaks
+from port_bench.archs import waveformer as arch
 from port_bench.reference import model as ref_model
 from port_bench.tests import tiny
 
@@ -20,7 +21,7 @@ def _config(name):
 
 
 def test_flagship_patch_forward_count():
-    counts = flops.model_counts(_config("waveformer-brats")["network"], 1)
+    counts = flops.model_counts(arch, _config("waveformer-brats")["network"], 1)
     assert counts["forward_flops"] == 1_579_394_678_784
     assert counts["train_flops"] == 3 * counts["forward_flops"]
 
@@ -28,22 +29,22 @@ def test_flagship_patch_forward_count():
 def test_meta_count_equals_the_count_over_real_tensors():
     torch.set_num_threads(2)
     ref = ref_model.build(tiny.NETWORK, "cpu")
-    ref.load_state_dict(weights.make_state_dict(tiny.NETWORK, 1, "cpu"))
+    ref.load_state_dict(arch.make_state_dict(tiny.NETWORK, 1, "cpu"))
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         ref(torch.randn(2, 32, 32, 32, 2))
-    assert counter.get_total_flops() == flops.model_counts(tiny.NETWORK, 2)["forward_flops"]
+    assert counter.get_total_flops() == flops.model_counts(arch, tiny.NETWORK, 2)["forward_flops"]
 
 
 def test_flagship_calls_per_forward():
     """14 window-attention and 10 stencil calls a forward, as the system's
     launch counters read on the card."""
-    calls = flops.model_counts(_config("waveformer-brats")["network"], 8)["calls"]
+    calls = flops.model_counts(arch, _config("waveformer-brats")["network"], 8)["calls"]
     attn = [s for k, s in calls if k == "window_attention"]
     dw = [s for k, s in calls if k == "dwconv3"]
     assert len(attn) == 14 and len(dw) == 10
     assert (512, 3, 512, 16) in attn
     assert (8, 64, 64, 64, 192) in dw
-    abdomen = flops.model_counts(_config("waveformer-abdomen")["network"], 4)["calls"]
+    abdomen = flops.model_counts(arch, _config("waveformer-abdomen")["network"], 4)["calls"]
     assert {s[2] for k, s in abdomen if k == "window_attention"} == {216}
 
 

@@ -20,7 +20,8 @@ from port_bench.tests import tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-LAYERS = {"device", "model forward", "training step", "stitch and case driver", "kernels"}
+LAYERS = {"device", "model forward", "training step", "stitch and case driver", "kernels",
+          "gradient exchange"}
 
 
 @pytest.fixture
@@ -45,8 +46,10 @@ def test_benchmark_json_follows_the_contract():
     e2e = {m["name"]: m for m in bench["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25 and "workloads" not in e2e["setup_s"]
     pairs = set()
+    four = [w["name"] for w in bench["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(bench["workloads"]) // 4)
     for w in bench["workloads"]:
-        assert 1 <= len(w["why"]) <= 200 and w["chips"] == 1
+        assert 1 <= len(w["why"]) <= 200 and w["chips"] in (1, 4)
         pairs.add((w["config"], w["traffic"]))
         traffic = reg.traffic(w["traffic"])
         assert os.path.exists(os.path.join(reg.pkg, "kinds", f"{traffic['kind']}.py"))
@@ -62,6 +65,7 @@ def test_benchmark_json_follows_the_contract():
     for m in bench["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
     for m in bench["per_layer"]:
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
         assert m["layer"] in LAYERS and m["moves"] in e2e
         for cell in m.get("workloads", []):
             assert m["moves"] in {x["name"] for x in reg.metrics(cell, False)}

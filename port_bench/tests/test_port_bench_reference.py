@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from port_bench import weights
+from port_bench.archs import waveformer as arch
 from port_bench.reference import model as ref_model
 from port_bench.reference import serve as ref_serve
 from port_bench.reference import train as ref_train
@@ -32,7 +32,7 @@ def _threads():
 
 
 def _state_dict(seed=5):
-    return weights.make_state_dict(tiny.NETWORK, seed, "cpu")
+    return arch.make_state_dict(tiny.NETWORK, seed, "cpu")
 
 
 def _port(sd, dtype=torch.float32, **kw):
@@ -118,7 +118,7 @@ def test_training_steps_match_the_systems_step():
     ref = ref_model.build(tiny.NETWORK, "cpu")
     ref.load_state_dict(sd)
     opt = ref_train.AdamW(list(ref.parameters()), 1e-3, 1e-2, 1.0)
-    out = ref_train.run_steps(ref, batches, 9, opt)
+    out = ref_train.run_steps(ref, batches, 9, opt, arch)
     np.testing.assert_allclose(out["losses"], losses, rtol=1e-5)
     # the reference's backward runs one sample at a time: fp32 sums in
     # another order, 1e-3 apart at a near-constant InstanceNorm input
