@@ -218,6 +218,19 @@ Phases, each of which must pass:
      launches count toward the kernels line. To iterate on it alone:
      `chip_smoke.run_drivers(ac, dc)` from a guarded script after
      `_build.LIBRARIES.build_all()` and TF32 off.
+ 18. SwinUNETR-V2's shifted windows: the masked kernel (`window_attention`
+     with `ops.window.shift_labels`) at the four calls of a batch-8 128³
+     forward, (8000 | 1000 | 216 | 64, 3 | 6 | 12 | 24, 343, 16) with the
+     labels of the padded grids 70³ / 35³ / 21³ / 14³, against the plain
+     composition in bf16 (`tma_wgmma`) and fp32 (`fma`), one masked launch
+     a call on the design its rule names, with the bf16 kernel's ms beside
+     the unmasked launch's, the plain composition's and the bound; then a
+     128³ case through `Predictor` (8-way patch TTA: 8 batch-1 forwards)
+     on the seed-0 bf16 model built by `models.create_model` (`model_type:
+     "SwinUNETR"`): exactly 8 `tma_wgmma` launches a forward, 4 of them
+     masked, none on `fma`. Its launches count toward the kernels line.
+     To iterate on it alone: `chip_smoke.run_swin_path(ac)` after
+     `_build.LIBRARIES.build_all()` and TF32 off.
 The last lines are a `{"kernels": [...]}` JSON line (each kernel at the
 main-path call with the largest bound, with its worst ratio to its library
 call over the main-path shapes), the card line, and
@@ -921,6 +934,111 @@ label_mode: "brats"
 logging:
   log_file: "{root}/logs/train.log"
 """
+
+
+# phase 18: SwinUNETR-V2 at 128³, batch 8 — each stage's window-attention
+# call (B·nW, heads, 7³, 16) and the padded grid its shift labels cover
+SWIN_STAGE_CALLS = [((8000, 3, 343, 16), 70), ((1000, 6, 343, 16), 35),
+                    ((216, 12, 343, 16), 21), ((64, 24, 343, 16), 14)]
+SWIN_WINDOW, SWIN_SHIFT = 7, 3
+
+
+def check_masked_attention(ac):
+    """Phase 18's kernel part: each stage call with its shift labels
+    against the plain composition, in both dtypes, one masked launch a
+    call on the design the rule names; bf16 times beside the unmasked
+    launch, the plain composition and the bound."""
+    from waveformer_tpu_torch.ops.window import shift_labels
+
+    dev = torch.device("cuda")
+    ok, rows = True, []
+    for shape, grid in SWIN_STAGE_CALLS:
+        bw, h, n, d = shape
+        labels = shift_labels((grid,) * 3, (SWIN_WINDOW,) * 3, (SWIN_SHIFT,) * 3).to(dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v = (torch.randn(shape, device=dev, generator=g) for _ in range(3))
+        bias = torch.randn(h, n, n, device=dev, generator=g) * 0.5
+        scale = d**-0.5
+        row = {"kernel": "window_attention", "masked": True, "shape": list(shape),
+               "label_windows": labels.shape[0]}
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            qq, kk, vv = (t.to(dt) for t in (q, k, v))
+            design = ac.design(dt, n, d)
+            before, masked = dict(ac.design_launches), ac.masked_launches
+            got = ac.window_attention(qq, kk, vv, bias, scale, labels)
+            torch.cuda.synchronize()
+            launched = (ac.design_launches == dict(before, **{design: before[design] + 1})
+                        and ac.masked_launches == masked + 1)
+            want = ac.window_attention_reference(qq, kk, vv, bias, scale, labels)
+            good, err = within(got, want, name)
+            ok &= good and launched
+            row[f"max_err_{name}"], row[f"design_{name}"] = err, design
+            del got, want
+        qq, kk, vv = (t.to(torch.bfloat16) for t in (q, k, v))
+        row["kernel_ms"] = cuda_ms(lambda: ac.window_attention(qq, kk, vv, bias, scale, labels))
+        row["unmasked_ms"] = cuda_ms(lambda: ac.window_attention(qq, kk, vv, bias, scale))
+        row["plain_ms"] = cuda_ms(
+            lambda: ac.window_attention_reference(qq, kk, vv, bias, scale, labels), iters=3)
+        # the least time, as phase 3's, the labels' bytes added
+        times = {
+            "bytes": (4 * bw * h * n * d * 2 + h * n * n * 4 + labels.numel()) / HBM_BYTES_PER_S
+            * 1e3,
+            "operations": 4 * bw * h * n * n * d / BF16_TENSOR_FLOPS * 1e3,
+            "exponentials": bw * h * n * n / EXP2_PER_S * 1e3,
+        }
+        row["bound_by"] = max(times, key=times.get)
+        row["bound_ms"] = times[row["bound_by"]]
+        log(json.dumps(row))
+        rows.append(row)
+        del q, k, v, qq, kk, vv
+        torch.cuda.empty_cache()
+    return ok, rows
+
+
+def run_swin_path(ac):
+    """Phase 18: the masked kernel at the stage calls, then a 128³ case
+    through `Predictor` on SwinUNETR-V2 with exact launch counts. Returns
+    (ok, the masked kernel's rows, the case's window-attention launches)."""
+    from waveformer_tpu_torch.config import NetworkConfig
+    from waveformer_tpu_torch.inference import Predictor, SlidingWindowInferer
+    from waveformer_tpu_torch.models import create_model
+
+    ok, rows = check_masked_attention(ac)
+    model = create_model(NetworkConfig(model_type="SwinUNETR", use_v2=True),
+                         dtype=torch.bfloat16, seed=SEED, io_layout="channels_first")
+    inferer = SlidingWindowInferer(roi_size=(128,) * 3, sw_batch_size=8, overlap=0.5,
+                                   mirror_axes=(0, 1, 2), layout="channels_first",
+                                   tta_mode="patch")
+    predictor = Predictor(inferer, upload_dtype=torch.bfloat16)
+    case = np.random.default_rng(SEED).standard_normal((4, 128, 128, 128)).astype(np.float32)
+    predictor.predict_case(case, model, out_channels=4)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts(ac)
+    ac.masked_launches = 0
+    seg = predictor.predict_case(case, model, out_channels=4)
+    forwards = forwards_per_case(inferer, case.shape[1:])
+    designs, masked = dict(ac.design_launches), ac.masked_launches
+    ok &= (seg.shape == case.shape[1:] and int(seg.max()) < 4
+           and ac.launches == 8 * forwards and masked == 4 * forwards
+           and designs == {"fma": 0, "tma_wgmma": 8 * forwards})
+    log(json.dumps({"check": "swin_path_predict", "case_shape": list(case.shape),
+                    "forwards": forwards, "window_attention_launches": ac.launches,
+                    "masked_launches": masked, "designs": designs,
+                    "label_counts": np.bincount(seg.ravel(), minlength=4).tolist()}))
+    launched = ac.launches
+    del model, predictor
+    torch.cuda.empty_cache()
+    return bool(ok), rows, launched
+
+
+def masked_headline(rows):
+    """The kernels line's masked entry: phase 18's call with the largest
+    bound and the worst error over its calls."""
+    r = max(rows, key=lambda r: r["bound_ms"])
+    return {"shape": r["shape"], "ms": r["kernel_ms"], "unmasked_ms": r["unmasked_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "max_abs_err": max(v for x in rows for k, v in x.items() if k.startswith("max_err_"))}
 
 
 def zero_counts(*counters):
@@ -3338,6 +3456,10 @@ def main():
     ok, served = run_serving_path(bench, ac, dc)
     if not ok:
         failed.append("serving_path")
+    ok, results["window_attention_masked"], swin_launches = run_swin_path(ac)
+    if not ok:
+        failed.append("swin_path")
+    launches["window_attention"] += swin_launches
     ok, conv_rows = check_conv(cc, fc)
     results.update(conv_rows)
     if not ok:
@@ -3409,7 +3531,8 @@ def main():
         headline(results["attention"], "window_attention",
                  "waveformer_tpu_torch/csrc/window_attention.cu",
                  "waveformer_tpu/ops/attention_pallas.py:34",
-                 design=ac.design(torch.bfloat16, *ATTN_MAIN_SHAPES[0][2:])),
+                 design=ac.design(torch.bfloat16, *ATTN_MAIN_SHAPES[0][2:]),
+                 masked=masked_headline(results["window_attention_masked"])),
         headline(results["dwconv3"], "dwconv3",
                  "waveformer_tpu_torch/csrc/dwconv3.cu",
                  "waveformer_tpu/ops/dwconv_pallas.py:32",

@@ -109,10 +109,19 @@ def _same(got, want):
     return got == want
 
 
+# fields the port's dataclasses add after the JAX package's (the models only
+# the port builds); the JAX configs leave them at their defaults
+PORT_ONLY = {"NetworkConfig": ("feature_size", "window_size", "use_v2")}
+
+
 def _assert_fields_equal(got, want, path="Config"):
     assert type(got).__name__ == type(want).__name__, path
     names = [f.name for f in dataclasses.fields(want)]
-    assert [f.name for f in dataclasses.fields(got)] == names, path
+    extra = PORT_ONLY.get(type(got).__name__, ())
+    assert [f.name for f in dataclasses.fields(got)] == names + list(extra), path
+    defaults = {f.name: f.default for f in dataclasses.fields(got)}
+    for name in extra:
+        assert getattr(got, name) == defaults[name], f"{path}.{name}"
     for name in names:
         a, b = getattr(got, name), getattr(want, name)
         if dataclasses.is_dataclass(b):
@@ -148,6 +157,24 @@ def test_defaults_and_filtering_match_jax():
     assert got.extra == {"label_mode": "multiclass", "unknown_top": [1, 2]}
     with pytest.raises(ValueError, match="1/2/4/8"):
         tcfg.PredictionConfig(tta_orientations=3)
+
+
+def test_swin_unetr_network_config():
+    """The port's own model type: its fields from a mapping, its model's
+    keyword arguments, and no check of WaveFormer's wavelet levels."""
+    net = tcfg.NetworkConfig.from_dict({
+        "model_type": "SwinUNETR", "in_channels": 4, "out_channels": 3, "img_size": 96,
+        "feature_size": 48, "window_size": 7, "use_v2": True,
+        "transformer": {"depths": [2, 2, 2, 2], "num_heads": [3, 6, 12, 24],
+                        "decom_levels": [9, 9, 9, 9], "drop_path_rate": 0.0}})
+    assert net.model_kwargs() == {
+        "img_size": (96, 96, 96), "in_channels": 4, "out_channels": 3, "feature_size": 48,
+        "depths": (2, 2, 2, 2), "num_heads": (3, 6, 12, 24), "window_size": 7,
+        "use_v2": True, "drop_path_rate": 0.0}
+    with pytest.raises(ValueError, match="not divisible"):
+        tcfg.NetworkConfig.from_dict({"transformer": {"decom_levels": [9, 9, 9, 9]}})
+    with pytest.raises(ValueError, match="patches of 2"):
+        tcfg.NetworkConfig(model_type="SwinUNETR", patch_size=4)
 
 
 @pytest.mark.parametrize("name", CONFIG_TEXTS)

@@ -342,6 +342,79 @@ class TestWindowAttentionDesigns:
                     assert tac.library_design(dtype, n, d) == tac.design(dtype, n, d), (n, d)
 
 
+# shifted windows (Swin): N = 343 at every TMA head dim, a ragged 4³ window,
+# and N = 343 / 216 on the FMA kernel (D % 16 != 0, and every fp32 call)
+MASKED_SHAPES = [(3, 343, 16), (2, 343, 32), (2, 343, 48), (2, 343, 64), (2, 64, 16),
+                 (2, 343, 8), (2, 216, 24)]
+
+
+@pytest.mark.cuda
+class TestMaskedWindowAttention:
+    """Per-window shift labels (nW, N) uint8 against the plain composition
+    with MONAI's −100 mask; windows b take labels b % nW."""
+
+    def _inputs(self, device, nw, h, n, d, dtype, labels=None):
+        q, k, v, b = (torch.from_numpy(a).to(device) for a in _qkvb(2 * nw, h, n, d, seed=n + d))
+        if labels is None:  # every pair of regions present, far harsher than a shift's
+            rng = np.random.RandomState(n * 7 + d)
+            labels = rng.randint(0, 27, (nw, n)).astype(np.uint8)
+        return (*(t.to(dtype) for t in (q, k, v)), b, torch.as_tensor(labels).to(device))
+
+    def _check(self, q, k, v, b, labels, rtol, atol):
+        n, d = q.shape[2], q.shape[3]
+        name = tac.design(q.dtype, n, d)
+        before, masked = dict(tac.design_launches), tac.masked_launches
+        got = tac.window_attention(q, k, v, b, d**-0.5, labels)
+        want = tac.window_attention_reference(q, k, v, b, d**-0.5, labels)
+        torch.cuda.synchronize()
+        assert tac.design_launches[name] == before[name] + 1
+        assert tac.masked_launches == masked + 1
+        assert got.dtype == q.dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        return name
+
+    @pytest.mark.parametrize("h,n,d", MASKED_SHAPES)
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_masked_matches_plain(self, cuda_device, h, n, d, dtype, rtol, atol):
+        args = self._inputs(cuda_device, 4, h, n, d, dtype)
+        assert self._check(*args, rtol, atol) == tac.design(dtype, n, d)
+
+    @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+    def test_shift_labels_of_a_padded_stage(self, cuda_device, dtype, rtol, atol):
+        """The labels a shifted block passes: 14³ padded from 8³ or 12³, 8 windows."""
+        from waveformer_tpu_torch.ops.window import shift_labels
+
+        labels = shift_labels((14, 14, 14), (7, 7, 7), (3, 3, 3))
+        args = self._inputs(cuda_device, 8, 3, 343, 16, dtype, labels)
+        self._check(*args, rtol, atol)
+
+    @pytest.mark.parametrize("h,n,d", MASKED_SHAPES)
+    def test_uniform_labels_equal_the_unmasked_launch(self, cuda_device, h, n, d):
+        """No pair differs: the masked kernel adds 0 to every score, so its
+        result is the unmasked launch's, bit for bit."""
+        q, k, v, b, _ = self._inputs(cuda_device, 4, h, n, d, torch.bfloat16)
+        labels = torch.zeros((4, n), dtype=torch.uint8, device=cuda_device)
+        got = tac.window_attention(q, k, v, b, d**-0.5, labels)
+        assert torch.equal(got, tac.window_attention(q, k, v, b, d**-0.5))
+
+    def test_labels_are_checked(self, cuda_device):
+        q, k, v, b, labels = self._inputs(cuda_device, 4, 3, 343, 16, torch.bfloat16)
+        with pytest.raises(ValueError, match="do not divide"):
+            tac.window_attention(q, k, v, b, 0.25, labels[:3])
+        with pytest.raises(ValueError, match="uint8"):
+            tac.window_attention(q, k, v, b, 0.25, labels.int())
+
+    def test_masked_gradients(self, cuda_device):
+        """The backward is the plain composition's, mask included."""
+        q, k, v, b, labels = self._inputs(cuda_device, 4, 3, 343, 16, torch.float32)
+        dout = torch.randn_like(q)
+        got = _grads(lambda *a: tac.window_attention(*a, 0.25, labels), (q, k, v, b), dout)
+        want = _grads(lambda *a: tac.window_attention_reference(*a, 0.25, labels),
+                      (q, k, v, b), dout)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
 # (B, D, H, W), C, O: the JAX tests' shapes, C = 3…6 and O = 4…8 (the K-chunk
 # and the n-tile padded on chip only), the flagship's widths at small extents
 CONV_SHAPES = [((1, 8, 8, 16), 4, 8), ((1, 4, 16, 8), 6, 5), ((2, 4, 8, 8), 3, 4),

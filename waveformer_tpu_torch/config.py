@@ -2,7 +2,9 @@
 
 A copy of `waveformer_tpu/config.py`: the same dataclasses, fields,
 defaults and `from_dict` filtering (unknown top-level keys go to `extra`,
-unknown nested keys are dropped). `load_config` reads YAML with the
+unknown nested keys are dropped). `NetworkConfig` adds, after the JAX
+package's fields, the Swin UNETR fields the port alone builds
+(`model_type: "SwinUNETR"`). `load_config` reads YAML with the
 port's own reader (`utils/yaml_subset.py`), so no PyYAML is needed.
 """
 
@@ -58,7 +60,13 @@ class TransformerConfig:
 
 @dataclass(frozen=True)
 class NetworkConfig:
-    """Full model config (reference `utils/network_config.py:15-173`)."""
+    """Full model config (reference `utils/network_config.py:15-173`).
+
+    `model_type` picks the model `models.create_model` builds:
+    "Waveformer" (the reference's) or "SwinUNETR" (MONAI's `SwinUNETR`,
+    SwinUNETR-V2 with `use_v2`), which reads `in_channels`,
+    `out_channels`, `img_size`, `feature_size`, `window_size`, `use_v2`
+    and the transformer's `depths`, `num_heads` and `drop_path_rate`."""
 
     model_type: str = "Waveformer"
     in_channels: int = 4
@@ -70,11 +78,19 @@ class NetworkConfig:
     conv_block: bool = True
     use_checkpoint: bool = False
     transformer: TransformerConfig = field(default_factory=TransformerConfig)
+    # Swin UNETR only (MONAI's defaults but `feature_size`, SwinUNETR-V2's 48)
+    feature_size: int = 48
+    window_size: int = 7
+    use_v2: bool = False
 
     def __post_init__(self):
         if self.spatial_dims != 3:
             raise ValueError("only spatial_dims=3 is supported")
         object.__setattr__(self, "img_size", _as_tuple3(self.img_size))
+        if self.model_type == "SwinUNETR" and self.patch_size != 2:
+            raise ValueError("SwinUNETR embeds patches of 2 only")
+        if self.model_type != "Waveformer":
+            return
         for i, lvl in enumerate(self.transformer.decom_levels):
             grid = self.img_size[0] // (self.patch_size * (2**i))
             if grid % (2 ** max(lvl, 0)) != 0:
@@ -98,8 +114,22 @@ class NetworkConfig:
         return cls(transformer=TransformerConfig(**tf), **d)
 
     def model_kwargs(self) -> Dict[str, Any]:
-        """Keyword arguments for `waveformer_tpu_torch.models.Waveformer`."""
+        """Keyword arguments for the model of `model_type`:
+        `waveformer_tpu_torch.models.SwinUNETR` for "SwinUNETR", else
+        `waveformer_tpu_torch.models.Waveformer`."""
         t = self.transformer
+        if self.model_type == "SwinUNETR":
+            return dict(
+                img_size=self.img_size,
+                in_channels=self.in_channels,
+                out_channels=self.out_channels,
+                feature_size=self.feature_size,
+                depths=t.depths,
+                num_heads=t.num_heads,
+                window_size=self.window_size,
+                use_v2=self.use_v2,
+                drop_path_rate=t.drop_path_rate,
+            )
         return dict(
             img_size=self.img_size,
             patch_size=self.patch_size,

@@ -1,4 +1,5 @@
-// Fused window attention for Hopper: out = softmax(q·kᵀ·scale + bias_h)·v.
+// Fused window attention for Hopper: out = softmax(q·kᵀ·scale + bias_h
+// [+ mask_w])·v.
 //
 // Replaces the TPU kernel waveformer_tpu/ops/attention_pallas.py
 // (`window_attention`, `_kernel` :34-51). Shapes: q/k/v/out (BW, H, N, D)
@@ -7,6 +8,16 @@
 // 64. Scores, softmax and the PV sum are fp32; the probabilities are cast to
 // the input dtype before PV, as the model's composition does
 // (`models/attention.py:100-101`).
+//
+// Shifted windows (Swin's `compute_mask`): with `labels`, (nW, N) uint8 shift
+// region labels of window `bw % nW` (row stride `lstride` ≥ N, the rows
+// zero-padded to a multiple of 128 so that every key tile's pairs can be
+// read without a bound check), the score of query i and key j gets −100
+// added where labels[w, i] ≠ labels[w, j], in fp32 before the softmax, as
+// MONAI adds its (nW, N, N) mask (−100, not −∞). The labels are a template
+// flag of both designs: a launch without them compiles and runs the code it
+// ran before they existed. nW·N bytes against the (nW, N, N) fp32 mask's
+// nW·N²·4 (0.47 GB at Swin's stage 1).
 //
 // What bounds it: the exponentials. At the stage-1 call (512, 3, 512, 16)
 // bf16 the kernel takes 512·3·512² = 4.03e8 exp2, ≈0.10 ms on the H100's
@@ -63,6 +74,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskLog2 = -100.f * kLog2e;  // MONAI's −100, in the log2 domain
 constexpr int kMaxN = 1024, kMaxD = 64;
 
 enum Design : int { kFma = 0, kTmaWgmma = 1 };
@@ -84,6 +96,8 @@ struct Params {
   int bw, h, n, d;
   float qscale;  // scale · log2(e)
   int windows_per_block;  // fma design
+  const uint8_t* labels;  // (n_win, lstride) shift-region labels, or null
+  int n_win, lstride;
 };
 
 int sm_count() {
@@ -116,7 +130,7 @@ __device__ __forceinline__ void load_upto8(const T* src, bool vec, int count, fl
   for (int i = 0; i < 8; ++i) o[i] = i < count ? wft::to_f(src[i]) : 0.f;
 }
 
-template <typename T, int DP>  // DP: D rounded up to 8
+template <typename T, int DP, bool kMasked>  // DP: D rounded up to 8
 __global__ void __launch_bounds__(256) window_attention_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int qt = blockDim.x / kThreadsPerQ;  // query rows of this block
@@ -127,6 +141,7 @@ __global__ void __launch_bounds__(256) window_attention_kernel(Params p) {
   float* bias_s = smem;
   float* k_s = bias_s + qt * bstride;
   float* v_s = k_s + kKeyTile * kvstride;
+  int* kl_s = reinterpret_cast<int*>(v_s + kKeyTile * kvstride);  // the key tile's labels
 
   const int head = blockIdx.y;
   const int q0 = blockIdx.x * qt;
@@ -148,6 +163,8 @@ __global__ void __launch_bounds__(256) window_attention_kernel(Params p) {
 
   const float* brow = bias_s + r * bstride;
   for (int w = w0; w < w1; ++w) {
+    const uint8_t* lrow = kMasked ? p.labels + (size_t)(w % p.n_win) * p.lstride : nullptr;
+    const int ql = kMasked && row_ok ? lrow[q0 + r] : 0;
     const T* qp = static_cast<const T*>(p.q) + w * p.q_sb + head * p.q_sh +
                   (long long)(row_ok ? q0 + r : 0) * p.q_sn;
     const T* kb = static_cast<const T*>(p.k) + w * p.k_sb + head * p.k_sh;
@@ -173,6 +190,9 @@ __global__ void __launch_bounds__(256) window_attention_kernel(Params p) {
         load_upto8(vb + (long long)(k0 + row) * p.v_sn + c, vec, count, tmp);
         wft::store8(v_s + row * kvstride + c, tmp);
       }
+      if constexpr (kMasked) {  // rows past N read the zero padding
+        for (int row = tid; row < kKeyTile; row += blockDim.x) kl_s[row] = lrow[k0 + row];
+      }
       __syncthreads();
 
       constexpr int kPer = kKeyTile / kThreadsPerQ;
@@ -192,6 +212,7 @@ __global__ void __launch_bounds__(256) window_attention_kernel(Params p) {
           s = fmaf(qf[c + 3], kk.w, s);
         }
         s = k0 + j < n ? s + brow[k0 + j] : -INFINITY;
+        if constexpr (kMasked) s += kl_s[j] != ql ? kMaskLog2 : 0.f;
         sc[i] = s;
         cmax = fmaxf(cmax, s);
       }
@@ -249,12 +270,13 @@ __global__ void __launch_bounds__(256) window_attention_kernel(Params p) {
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kMasked>
 cudaError_t launch_fma(Params p, cudaStream_t stream) {
   const int qt = p.n > 512 ? 32 : std::min(64, (p.n + 7) / 8 * 8);
   const size_t smem =
-      (size_t)(qt * fma_bias_stride(p.n) + 2 * kKeyTile * (DP + 4)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, DP>,
+      (size_t)(qt * fma_bias_stride(p.n) + 2 * kKeyTile * (DP + 4) + (kMasked ? kKeyTile : 0)) *
+      sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, DP, kMasked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // windows per block: about two waves of blocks over the SMs; fewer windows
@@ -265,21 +287,21 @@ cudaError_t launch_fma(Params p, cudaStream_t stream) {
       std::min(p.bw, std::max(1, (2 * sm_count() + per_window - 1) / per_window));
   p.windows_per_block = (p.bw + groups - 1) / groups;
   dim3 grid(qtiles, p.h, (p.bw + p.windows_per_block - 1) / p.windows_per_block);
-  window_attention_kernel<T, DP><<<grid, qt * kThreadsPerQ, smem, stream>>>(p);
+  window_attention_kernel<T, DP, kMasked><<<grid, qt * kThreadsPerQ, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kMasked>
 cudaError_t dispatch_fma(const Params& p, cudaStream_t stream) {
   switch ((p.d + 7) / 8) {
-    case 1: return launch_fma<T, 8>(p, stream);
-    case 2: return launch_fma<T, 16>(p, stream);
-    case 3: return launch_fma<T, 24>(p, stream);
-    case 4: return launch_fma<T, 32>(p, stream);
-    case 5: return launch_fma<T, 40>(p, stream);
-    case 6: return launch_fma<T, 48>(p, stream);
-    case 7: return launch_fma<T, 56>(p, stream);
-    default: return launch_fma<T, 64>(p, stream);
+    case 1: return launch_fma<T, 8, kMasked>(p, stream);
+    case 2: return launch_fma<T, 16, kMasked>(p, stream);
+    case 3: return launch_fma<T, 24, kMasked>(p, stream);
+    case 4: return launch_fma<T, 32, kMasked>(p, stream);
+    case 5: return launch_fma<T, 40, kMasked>(p, stream);
+    case 6: return launch_fma<T, 48, kMasked>(p, stream);
+    case 7: return launch_fma<T, 56, kMasked>(p, stream);
+    default: return launch_fma<T, 64, kMasked>(p, stream);
   }
 }
 
@@ -368,7 +390,7 @@ __device__ __forceinline__ void fill_bias(float* bias_s, const float* bsrc, int 
   }
 }
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(tma_threads<D>(), 1)
     window_attention_tma_kernel(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap kmap,
@@ -483,6 +505,17 @@ __global__ void __launch_bounds__(tma_threads<D>(), 1)
 
     for (int i = c; i < nwin; i += kConsumers) {
       const int w = wbeg + i;
+      // the window's labels as key pairs (2 bytes: the rows are padded to 128)
+      const uint16_t* lpair =
+          kMasked ? reinterpret_cast<const uint16_t*>(p.labels + (size_t)(w % p.n_win) * p.lstride)
+                  : nullptr;
+      int ql0 = 0, ql1 = 0;
+      if constexpr (kMasked) {
+        const int r0 = q0 + warp * 16 + g;
+        const uint8_t* lrow = p.labels + (size_t)(w % p.n_win) * p.lstride;
+        ql0 = lrow[r0];  // rows past N (< lstride) read the padding and are not stored
+        ql1 = lrow[r0 + 8];
+      }
       const int qs = qc % kQSlots;
       mbar_wait_or_trap(qfull(c, qs), (qc / kQSlots) & 1);
       const uint32_t q_addr = wft::smem_u32(q_slot(c, qs));
@@ -527,6 +560,14 @@ __global__ void __launch_bounds__(tma_threads<D>(), 1)
           s[4 * j + 1] = fmaf(s[4 * j + 1], p.qscale, b0.y);
           s[4 * j + 2] = fmaf(s[4 * j + 2], p.qscale, b1.x);
           s[4 * j + 3] = fmaf(s[4 * j + 3], p.qscale, b1.y);
+          if constexpr (kMasked) {
+            const uint32_t pair = __ldg(lpair + col / 2);
+            const int ka = pair & 0xff, kb = pair >> 8;
+            s[4 * j] += ka != ql0 ? kMaskLog2 : 0.f;
+            s[4 * j + 1] += kb != ql0 ? kMaskLog2 : 0.f;
+            s[4 * j + 2] += ka != ql1 ? kMaskLog2 : 0.f;
+            s[4 * j + 3] += kb != ql1 ? kMaskLog2 : 0.f;
+          }
           if (tail) {  // keys past N
             if (col >= n) s[4 * j] = s[4 * j + 2] = -INFINITY;
             if (col + 1 >= n) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
@@ -614,7 +655,7 @@ cudaError_t attention_map(CUtensorMap* map, const void* base, const Params& p, l
   return wft::make_map_bf16(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
-template <int D>
+template <int D, bool kMasked>
 cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
   constexpr int KT = key_tile<D>(), CH = D / 16, kConsumers = consumers<D>();
   TmaPlan t;
@@ -642,11 +683,12 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   err = attention_map(&vmap, p.v, p, p.v_sb, p.v_sh, p.v_sn, KT);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(window_attention_tma_kernel<D>,
+  err = cudaFuncSetAttribute(window_attention_tma_kernel<D, kMasked>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_attention_tma_kernel<D>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                      window_attention_tma_kernel<D, kMasked>,
                                                       tma_threads<D>(), smem);
   if (err != cudaSuccess) return err;
   // equal shares of the (head, query tile, window) items for every block in flight
@@ -654,9 +696,23 @@ cudaError_t launch_tma(const Params& p, cudaStream_t stream) {
   const long long slots = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
   t.items_per_block = (int)((total + slots - 1) / slots);
   const long long blocks = (total + t.items_per_block - 1) / t.items_per_block;
-  window_attention_tma_kernel<D><<<(unsigned)blocks, tma_threads<D>(), smem, stream>>>(
+  window_attention_tma_kernel<D, kMasked><<<(unsigned)blocks, tma_threads<D>(), smem, stream>>>(
       qmap, kmap, vmap, p, t);
   return cudaGetLastError();
+}
+
+template <bool kMasked>
+cudaError_t dispatch(int dtype, const Params& p, cudaStream_t s) {
+  if (design_of(dtype, p.n, p.d) == kTmaWgmma) {
+    switch (p.d) {
+      case 16: return launch_tma<16, kMasked>(p, s);
+      case 32: return launch_tma<32, kMasked>(p, s);
+      case 48: return launch_tma<48, kMasked>(p, s);
+      default: return launch_tma<64, kMasked>(p, s);
+    }
+  }
+  if (dtype == wft::kFloat32) return dispatch_fma<float, kMasked>(p, s);
+  return dispatch_fma<__nv_bfloat16, kMasked>(p, s);
 }
 
 }  // namespace
@@ -669,33 +725,26 @@ extern "C" int wft_window_attention_design(int dtype, int n, int d) {
 
 // Returns a cudaError_t (0 on success). Strides are in elements; for the TMA
 // design the q/k/v strides must be multiples of 8 and the pointers 16-byte
-// aligned, as for the fma design at D % 8 == 0.
+// aligned, as for the fma design at D % 8 == 0. `labels` is null, or (n_win,
+// lstride) uint8 with n_win dividing bw and lstride a multiple of 128 ≥ n.
 extern "C" int wft_window_attention(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     void* o, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
     long long k_sh, long long k_sn, long long v_sb, long long v_sh,
     long long v_sn, long long o_sb, long long o_sh, long long o_sn, int bw,
-    int h, int n, int d, float scale, void* stream) {
+    int h, int n, int d, float scale, const void* labels, int n_win, int lstride,
+    void* stream) {
   if (n < 1 || n > kMaxN || d < 1 || d > kMaxD || bw < 1 || h < 1 ||
       (dtype != wft::kFloat32 && dtype != wft::kBFloat16)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (labels != nullptr && (n_win < 1 || bw % n_win != 0 || lstride < n || lstride % 128 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Params p{q, k, v, static_cast<const float*>(bias), o,
                  q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn,
-                 o_sb, o_sh, o_sn, bw, h, n, d, scale * kLog2e, 1};
+                 o_sb, o_sh, o_sn, bw, h, n, d, scale * kLog2e, 1,
+                 static_cast<const uint8_t*>(labels), n_win, lstride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (design_of(dtype, n, d) == kTmaWgmma) {
-    switch (d) {
-      case 16: err = launch_tma<16>(p, s); break;
-      case 32: err = launch_tma<32>(p, s); break;
-      case 48: err = launch_tma<48>(p, s); break;
-      default: err = launch_tma<64>(p, s); break;
-    }
-  } else if (dtype == wft::kFloat32) {
-    err = dispatch_fma<float>(p, s);
-  } else {
-    err = dispatch_fma<__nv_bfloat16>(p, s);
-  }
-  return (int)err;
+  return (int)(labels != nullptr ? dispatch<true>(dtype, p, s) : dispatch<false>(dtype, p, s));
 }

@@ -11,9 +11,11 @@ input directory (one directory of modality NIfTIs per case), runs the full
 preprocess (crop, z-score, resample) → sliding-window patch TTA on the
 device → geometry restore pipeline, and writes `{case}.nii.gz` label maps
 in each source file's voxel order and affine. Designed for /input → /output
-container conventions but path-configurable. The weights are the JAX
-package's params `.npz`, loaded through `state_dict_from_jax`; the model
-runs on the CUDA device unless `--device cpu` is given. A missing config
+container conventions but path-configurable. The model is the config's
+(`models.create_model`: WaveFormer or Swin UNETR by `network.model_type`);
+the weights are a params `.npz` in `training.checkpoint.checkpoint_state_dict`'s
+form for it (the JAX package's for WaveFormer); the model runs on the CUDA
+device unless `--device cpu` is given. A missing config
 path means the default `Config()`, as in the JAX wrapper.
 """
 
@@ -30,9 +32,8 @@ from waveformer_tpu_torch.config import Config, load_config
 from waveformer_tpu_torch.data.preprocessing import MultiModalityPreprocessor
 from waveformer_tpu_torch.device import resolve_device
 from waveformer_tpu_torch.inference import Predictor, SlidingWindowInferer
-from waveformer_tpu_torch.models import create_waveformer
-from waveformer_tpu_torch.training.checkpoint import load_params_npz
-from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
+from waveformer_tpu_torch.models import create_model
+from waveformer_tpu_torch.training.checkpoint import checkpoint_state_dict, load_params_npz
 
 BRATS_MODALITIES = ("t2w.nii.gz", "t2f.nii.gz", "t1n.nii.gz", "t1c.nii.gz")
 
@@ -65,15 +66,10 @@ class InferenceAlgorithm:
         self.case_times = []
 
         dtype = torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else torch.float32
-        self.model = create_waveformer(
-            self.cfg.network.model_kwargs(), dtype=dtype, device=self.device,
-            io_layout="channels_first",
-        )
-        t = self.cfg.network.transformer
+        self.model = create_model(self.cfg.network, dtype=dtype, device=self.device,
+                                  io_layout="channels_first")
         self.model.load_state_dict(
-            state_dict_from_jax(load_params_npz(checkpoint), t.depths, t.hf_refinement),
-            strict=True,
-        )
+            checkpoint_state_dict(self.model, load_params_npz(checkpoint)), strict=True)
         inferer = SlidingWindowInferer(
             roi_size=self.cfg.prediction.patch_size,
             sw_batch_size=self.cfg.prediction.sw_batch_size,

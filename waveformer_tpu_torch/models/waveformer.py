@@ -20,7 +20,7 @@ from torch.utils.checkpoint import checkpoint as _checkpoint
 from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from waveformer_tpu_torch.device import resolve_device
-from waveformer_tpu_torch.models.attention import WindowAttention
+from waveformer_tpu_torch.models.attention import cast_keeping_bias_tables
 from waveformer_tpu_torch.models.blocks import WaveFormerBlock
 from waveformer_tpu_torch.models.common import PatchEmbed, layer_norm_stateless
 from waveformer_tpu_torch.models.conv_blocks import (
@@ -214,11 +214,7 @@ class Waveformer(nn.Module):
         """Cast the parameters to `dtype`, keeping the relative-position
         bias tables fp32 (their fp32 values, not a bf16 rounding of them) as
         the JAX package does."""
-        tables = {m: m.relative_position_bias_table.data.float()
-                  for m in self.modules() if isinstance(m, WindowAttention)}
-        self.to(dtype=dtype)
-        for m, table in tables.items():
-            m.relative_position_bias_table.data = table
+        cast_keeping_bias_tables(self, dtype)
         return self
 
     def _run(self, mod: nn.Module, *args):

@@ -40,6 +40,9 @@ def check_model_parallel(model: nn.Module, mesh: Mesh) -> None:
     takes any D; the port's DWT, patch merging and strided convs stay on
     one rank only so)."""
     t, s = mesh.spec.tensor, mesh.spec.spatial
+    if (t > 1 or s > 1) and not getattr(model, "model_parallel", True):
+        raise ValueError(f"{type(model).__name__} does not shard over a mesh's spatial or "
+                         f"tensor line (spatial={s}, tensor={t})")
     for name, m in model.named_modules():
         if hasattr(m, "tensor_shard") and hasattr(m, "num_heads") and m.num_heads % t:
             raise ValueError(f"tensor={t} does not divide the {m.num_heads} heads of {name}")

@@ -6,7 +6,9 @@
     torchrun --nproc-per-node N -m waveformer_tpu_torch.scripts.predict \
         --config config.yaml --sharded on
 
-Loads the best params checkpoint (the JAX package's `.npz` format), runs
+Builds the config's model (`models.create_model`: WaveFormer or Swin
+UNETR by `network.model_type`), loads the best params checkpoint (the JAX
+package's `.npz` format; a Swin UNETR's by its state dict keys), runs
 mirror-TTA sliding-window inference per case on the CUDA device (or the
 CPU when asked), restores the original geometry and writes
 `{case}.nii.gz` predictions, as `waveformer_tpu/scripts/predict.py` does.
@@ -31,12 +33,12 @@ from waveformer_tpu_torch.config import load_config
 from waveformer_tpu_torch.data.dataset import get_train_val_test_loader_from_train
 from waveformer_tpu_torch.device import resolve_device
 from waveformer_tpu_torch.inference import Predictor, SlidingWindowInferer
-from waveformer_tpu_torch.models import create_waveformer
+from waveformer_tpu_torch.models import create_model
 from waveformer_tpu_torch.parallel.mesh import (
     init_distributed, main_rank_first, make_mesh, world_size)
-from waveformer_tpu_torch.training.checkpoint import CheckpointManager, load_params_npz
+from waveformer_tpu_torch.training.checkpoint import (
+    CheckpointManager, checkpoint_state_dict, load_params_npz)
 from waveformer_tpu_torch.utils.determinism import set_determinism
-from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
 from waveformer_tpu_torch.utils.logger import get_logger, setup_logging_from_config
 
 
@@ -89,8 +91,7 @@ def main(argv=None):
 
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     # channels-first end to end: preprocessed volumes are stored (C, D, H, W)
-    model = create_waveformer(cfg.network.model_kwargs(), dtype=dtype, device=device,
-                              io_layout="channels_first")
+    model = create_model(cfg.network, dtype=dtype, device=device, io_layout="channels_first")
 
     ckpt_path = args.checkpoint
     if ckpt_path is None:
@@ -98,11 +99,7 @@ def main(argv=None):
     if ckpt_path is None:
         ap.error("no checkpoint found; pass --checkpoint")
     log.info(f"loading {ckpt_path}")
-    t = cfg.network.transformer
-    model.load_state_dict(
-        state_dict_from_jax(load_params_npz(ckpt_path), t.depths, t.hf_refinement),
-        strict=True,
-    )
+    model.load_state_dict(checkpoint_state_dict(model, load_params_npz(ckpt_path)), strict=True)
 
     pred_cfg = cfg.prediction
     if args.no_tta:

@@ -7,7 +7,8 @@
 
 The JAX package's `scripts/train.py` on one CUDA device (or the CPU when
 asked): config, logging, determinism, the persisted train/val split, the
-network in fp32 from `create_waveformer(cfg.network.model_kwargs())`, then
+network in fp32 from `models.create_model(cfg.network)` (WaveFormer or Swin
+UNETR by `network.model_type`), then
 `Trainer.train`, which takes its fp32 masters and then casts the network to
 the config's compute dtype. `--device` takes the place of `--platform`.
 `--multihost` (the JAX script calls `jax.distributed.initialize()` there)
@@ -31,7 +32,7 @@ import torch.distributed as dist
 from waveformer_tpu_torch.config import Config, load_config
 from waveformer_tpu_torch.data.dataset import get_train_val_test_loader_from_train
 from waveformer_tpu_torch.device import resolve_device
-from waveformer_tpu_torch.models import create_waveformer
+from waveformer_tpu_torch.models import create_model
 from waveformer_tpu_torch.parallel.mesh import Mesh, init_distributed, main_rank_first, make_mesh
 from waveformer_tpu_torch.training.trainer import Trainer
 from waveformer_tpu_torch.utils.determinism import set_determinism
@@ -43,7 +44,7 @@ def build_model(cfg: Config, device: Optional[torch.device] = None) -> torch.nn.
     trainer's batches are; the weights come from torch's generator, which
     `set_determinism(cfg.seed)` seeds. The trainer casts it to the config's
     compute dtype once these fp32 weights are its masters."""
-    return create_waveformer(cfg.network.model_kwargs(), device=device)
+    return create_model(cfg.network, device=device)
 
 
 def build_trainer(cfg: Config, model: torch.nn.Module, resume: bool = True,

@@ -11,6 +11,9 @@ Port of `waveformer_tpu/training/checkpoint.py` (reference
     no flax. The port's model takes these parameters through
     `utils/jax_params.state_dict_from_jax`; `utils/torch_port.convert_state_dict`
     goes the other way, and `params_tree` applies it to a train state.
+    Models the JAX package has no tree for (Swin UNETR) keep their state
+    dict keys as the file's keys: `checkpoint_tree` and
+    `checkpoint_state_dict` pick the form from the model.
   * `save_new_model_and_delete_last` and `CheckpointManager.save_best` /
     `save_final` / `find_best`: the reference's best/final files, in that
     shared format.
@@ -79,6 +82,44 @@ def params_tree(params: Mapping[str, Any], depths: Sequence[int] = (2, 2, 2, 2),
 
     return convert_state_dict({k: v.detach().float().cpu() for k, v in params.items()},
                               depths=tuple(depths), hf_refinement=hf_refinement)
+
+
+def _is_waveformer(model) -> bool:
+    from waveformer_tpu_torch.models.waveformer import Waveformer
+
+    return isinstance(model, Waveformer)
+
+
+def _waveformer_layout(model) -> Tuple[Tuple[int, ...], bool]:
+    """(depths, hf_refinement) of a `Waveformer`, as the converters between
+    its state dict and the JAX params tree take them."""
+    return model.waveformer_encoder.depths, model.decoder4.hf_ref is not None
+
+
+def checkpoint_tree(model, params: Mapping[str, Any]) -> Dict:
+    """`params` (by `model`'s parameter names) as a params file's tree: the
+    JAX package's for a `Waveformer`, the names themselves for another
+    model."""
+    if _is_waveformer(model):
+        return params_tree(params, *_waveformer_layout(model))
+    return {"params": {k: _np32(v) for k, v in params.items()}}
+
+
+def checkpoint_state_dict(model, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A params file's tree (`load_params_npz`) as `model`'s state dict,
+    for `load_state_dict(strict=True)`: through `state_dict_from_jax` for
+    a `Waveformer`; else the file's arrays by name, and `model`'s buffers
+    (the relative-position indices, fixed by the shapes) where it has
+    none."""
+    if _is_waveformer(model):
+        from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
+
+        return state_dict_from_jax(tree, *_waveformer_layout(model))
+    params = tree["params"] if "params" in tree else tree
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()}
+    for name, buf in model.named_buffers():
+        sd.setdefault(name, buf.detach().cpu())
+    return sd
 
 
 def save_new_model_and_delete_last(

@@ -67,7 +67,11 @@ from waveformer_tpu_torch.data.pipeline import PrefetchLoader
 from waveformer_tpu_torch.parallel.collectives import gather_metrics
 from waveformer_tpu_torch.parallel.mesh import Mesh, depth_slab, replicate
 from waveformer_tpu_torch.parallel.model_parallel import shard_model
-from waveformer_tpu_torch.training.checkpoint import CheckpointManager, params_tree
+from waveformer_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    checkpoint_state_dict,
+    checkpoint_tree,
+)
 from waveformer_tpu_torch.training.losses import dice_ce_loss
 from waveformer_tpu_torch.training.schedules import make_schedule
 from waveformer_tpu_torch.training.state import (
@@ -227,11 +231,6 @@ class Trainer:
                            2 * inter / (ps + gs + 1e-8))
         return dice.cpu().numpy()  # (B, K), NaN = class absent everywhere
 
-    def _layout(self) -> Tuple[Tuple[int, ...], bool]:
-        """(depths, hf_refinement) of the model, as the converters between
-        its state dict and the JAX params tree take them."""
-        return self.model.waveformer_encoder.depths, self.model.decoder4.hf_ref is not None
-
     def validation_end(self, mean_dice_per_class: np.ndarray):
         """Best/final/periodic checkpoint logic (`3_train.py:150-188`)."""
         if self.label_mode == "brats":
@@ -247,7 +246,7 @@ class Trainer:
             self.best_mean_dice = mean_dice
         if self.ckpt is None:  # not rank 0: it writes nothing
             return
-        params = params_tree(self.state.params, *self._layout())
+        params = checkpoint_tree(self.model, self.state.params)
         if improved:
             self.ckpt.save_best(params, mean_dice, self.epoch, self.model_name)
             self.log.info(f"epoch {self.epoch}: new best mean dice {mean_dice:.4f}")
@@ -551,14 +550,13 @@ class Trainer:
         return means, all_outputs
 
     def load_params(self, path: str):
-        """Load a params `.npz` (JAX package format) into the module and,
-        when training has started, into the masters. Before `train()` the
-        module is still fp32, so the masters it starts from are the
-        checkpoint's arrays."""
+        """Load a params `.npz` (`checkpoint_state_dict`'s form for the
+        model) into the module and, when training has started, into the
+        masters. Before `train()` the module is still fp32, so the masters
+        it starts from are the checkpoint's arrays."""
         from waveformer_tpu_torch.training.checkpoint import load_params_npz
-        from waveformer_tpu_torch.utils.jax_params import state_dict_from_jax
 
-        sd = state_dict_from_jax(load_params_npz(path), *self._layout())
+        sd = checkpoint_state_dict(self.model, load_params_npz(path))
         if hasattr(self, "state"):
             with torch.no_grad():
                 for n, m in self.state.params.items():
